@@ -21,3 +21,9 @@ jax.config.update("jax_enable_x64", True)
 jax.config.update("jax_compilation_cache_dir", "/tmp/nt_jax_cache")
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips elsewhere"
+    )
