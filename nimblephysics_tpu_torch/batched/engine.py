@@ -1,10 +1,14 @@
-"""BatchedEngine: the batched forward timestep on a GPU (or the CPU).
+"""BatchedEngine: the batched, differentiable timestep on a GPU (or the
+CPU).
 
 Counterpart of nimblephysics_tpu/batched/engine.py: smooth dynamics,
 collision at the pre-step q, the boxed LCP on the pre-constraint
 velocity, the impulse velocity update and parallel position integration
 from the pre-step velocity. Same layout at the public functions: q, v and
-control are (nv, B), impulses (n_rows, B).
+control are (nv, B), impulses (n_rows, B). Gradients flow through torch
+autograd and stop where the JAX package's do (batched/lcp.py);
+`remat_step` is the same step with the backward recompute of
+jax.checkpoint(step, policy=LCP_REMAT_POLICY).
 
 Device rule: the engine runs on the card unless the caller asks for the
 CPU. BatchedEngine(world) with no device means "cuda" and raises where
@@ -42,6 +46,36 @@ class BatchedStepResult(NamedTuple):
     contact_points: torch.Tensor  # (C, 3, B)
     contact_normals: torch.Tensor  # (C, 3, B)
     contact_depths: torch.Tensor  # (C, B)
+
+
+class _Recompute(torch.autograd.Function):
+    """fn(*inputs) -> tuple of tensors, run without a graph; the backward
+    runs it again with one and backpropagates through that (a checkpoint
+    of fn). Gradients reach the explicit inputs only: fn must close over
+    no tensor that needs one."""
+
+    @staticmethod
+    def forward(ctx, fn, *inputs):
+        ctx.fn = fn
+        ctx.save_for_backward(*inputs)
+        return tuple(fn(*inputs))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        needs = ctx.needs_input_grad[1:]
+        inputs = [x.detach().requires_grad_(need)
+                  for x, need in zip(ctx.saved_tensors, needs)]
+        with torch.enable_grad():
+            outs = ctx.fn(*inputs)
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and o.requires_grad]
+        wrt = [x for x, need in zip(inputs, needs) if need]
+        if not pairs:  # the cotangents reach no output that depends on an input
+            return (None,) * (1 + len(needs))
+        got = iter(torch.autograd.grad(
+            [o for o, _ in pairs], wrt, [g for _, g in pairs], allow_unused=True
+        ))
+        return (None, *[next(got) if need else None for need in needs])
 
 
 class LcpProblem(NamedTuple):
@@ -348,6 +382,49 @@ class BatchedEngine:
         F = Ft.transpose(0, 1).contiguous()  # (n, nv, B)
         return LcpProblem(F, b, mu, v_pre, Ls, cpoint, cnormal, cdepth)
 
+    def _lcp_options(self, fallback_cfm, fallback_gradients, ladder_mode):
+        cfg = self.world.solver
+        return dict(
+            cfm=cfg.cfm,
+            fallback_cfm=cfg.fallback_cfm if fallback_cfm is None else fallback_cfm,
+            fallback_gradients=(
+                cfg.fallback_gradients
+                if fallback_gradients is None
+                else fallback_gradients
+            ),
+            ladder_mode=cfg.ladder_mode if ladder_mode is None else ladder_mode,
+        )
+
+    def _inputs(self, q, v, control, z_warm):
+        nv = self.world.num_dofs
+        for name, x, rows in (("q", q, nv), ("v", v, nv),
+                              ("control", control, nv)):
+            self._check(name, x, rows)
+        if z_warm is None:
+            z_warm = torch.zeros(self.num_rows, q.shape[-1], dtype=q.dtype,
+                                 device=q.device)
+        self._check("z_warm", z_warm, self.num_rows)
+        return z_warm
+
+    def _finish(self, q, v, prob: LcpProblem, z) -> BatchedStepResult:
+        """The impulse velocity update and the position integration."""
+        w = self.world
+        u = torch.sum(prob.F * z[:, None, :], dim=0)  # (nv, B)
+        v_next = prob.v_pre + bl.block_solve_tri_upper_t_vec(
+            prob.Ls, self.skel_slices, u
+        )
+        v_for_pos = v if w.parallel_velocity_and_position_updates else v_next
+        q_next = integrate_positions(self.fw, q, v_for_pos, w.time_step)
+        return BatchedStepResult(
+            q=q_next,
+            v=v_next,
+            v_pre=prob.v_pre,
+            impulses=z,
+            contact_points=prob.contact_points,
+            contact_normals=prob.contact_normals,
+            contact_depths=prob.contact_depths,
+        )
+
     def step(
         self,
         q: torch.Tensor,
@@ -367,44 +444,49 @@ class BatchedEngine:
                 "body_params gradients come with the rest of the batched "
                 "engine (ROADMAP queue 1 item 9)"
             )
-        w = self.world
-        nv = w.num_dofs
-        nrows = self.num_rows
-        for name, x, rows in (("q", q, nv), ("v", v, nv),
-                              ("control", control, nv)):
-            self._check(name, x, rows)
-        B = q.shape[-1]
+        z_warm = self._inputs(q, v, control, z_warm)
         prob = self.lcp_problem(q, v, control)
-        if z_warm is None:
-            z_warm = torch.zeros(nrows, B, dtype=q.dtype, device=q.device)
-        self._check("z_warm", z_warm, nrows)
-        cfg = w.solver
         z = boxed_lcp_b(
             self.meta, prob.F, prob.b, prob.mu, z_warm,
-            cfm=cfg.cfm,
-            fallback_cfm=cfg.fallback_cfm if fallback_cfm is None else fallback_cfm,
-            fallback_gradients=(
-                cfg.fallback_gradients
-                if fallback_gradients is None
-                else fallback_gradients
-            ),
-            ladder_mode=cfg.ladder_mode if ladder_mode is None else ladder_mode,
+            **self._lcp_options(fallback_cfm, fallback_gradients, ladder_mode),
         )
-        u = torch.sum(prob.F * z[:, None, :], dim=0)  # (nv, B)
-        v_next = prob.v_pre + bl.block_solve_tri_upper_t_vec(
-            prob.Ls, self.skel_slices, u
-        )
-        v_for_pos = v if w.parallel_velocity_and_position_updates else v_next
-        q_next = integrate_positions(self.fw, q, v_for_pos, w.time_step)
-        return BatchedStepResult(
-            q=q_next,
-            v=v_next,
-            v_pre=prob.v_pre,
-            impulses=z,
-            contact_points=prob.contact_points,
-            contact_normals=prob.contact_normals,
-            contact_depths=prob.contact_depths,
-        )
+        return self._finish(q, v, prob, z)
+
+    def remat_step(
+        self,
+        q: torch.Tensor,
+        v: torch.Tensor,
+        control: torch.Tensor,
+        z_warm: Optional[torch.Tensor] = None,
+        fallback_cfm: Optional[float] = None,
+        fallback_gradients=None,
+        ladder_mode: Optional[str] = None,
+    ) -> BatchedStepResult:
+        """`step` with its values and gradients, keeping for the backward
+        only the step's inputs and the LCP's LcpSaved (a few (n, B)
+        tensors), as jax.checkpoint(step, policy=LCP_REMAT_POLICY) does.
+
+        The step runs once without a graph; its backward recomputes the
+        smooth dynamics, collision, rows and F, and replays the pinned
+        solve on the saved masks. The seed (the kernel on the card), the
+        refine rounds and the ladder never run again.
+        """
+        z_warm = self._inputs(q, v, control, z_warm)
+        opts = self._lcp_options(fallback_cfm, fallback_gradients, ladder_mode)
+        saved = []  # the forward's LcpSaved, read by the recompute
+
+        def replay(q, v, control, z_warm):
+            prob = self.lcp_problem(q, v, control)
+            if saved:
+                z = boxed_lcp_b(self.meta, prob.F, prob.b, prob.mu, z_warm,
+                                saved=saved[0], **opts)
+            else:
+                z, s = boxed_lcp_b(self.meta, prob.F, prob.b, prob.mu, z_warm,
+                                   return_saved=True, **opts)
+                saved.append(s)
+            return self._finish(q, v, prob, z)
+
+        return BatchedStepResult(*_Recompute.apply(replay, q, v, control, z_warm))
 
     def state_step(self, state, action):
         """RL state/action step: state (2nv, B), action (na, B)."""

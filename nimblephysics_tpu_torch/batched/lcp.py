@@ -1,25 +1,35 @@
-"""Batched boxed LCP, forward path, world batch in the trailing axis.
+"""Batched boxed LCP, world batch in the trailing axis.
 
-Counterpart of nimblephysics_tpu/batched/lcp.py as SolverConfig.
-throughput() runs it: the APGD seed (batched/lcp_cuda.py), the
-CLAMPING / UPPER_BOUND / NOT_CLAMPING classification with the reference
-tie-breaks, masked-Dantzig refinement rounds, the rank-factored pinned
-solve (two r x r SPD solves at cfm = 0, Woodbury at cfm > 0), the
+Counterpart of nimblephysics_tpu/batched/lcp.py: the iterative seed
+(batched/lcp_cuda.py: APGD with its optional PGS polish, or PGS alone),
+the CLAMPING / UPPER_BOUND / NOT_CLAMPING classification with the
+reference tie-breaks, masked-Dantzig refinement rounds, the rank-factored
+pinned solve (two r x r SPD solves at cfm = 0, Woodbury at cfm > 0), the
 scale-aware validity check and the failure ladder (seed, cfm-softened
-pinned solve, ignore-friction rung) with per-world selection.
+pinned solve, ignore-friction rung) with per-world selection, and the
+ladder's three gradient rules (fallback_gradients False, True and
+"reclassify").
 
 Pinned solve: the clamping block of A P is U V^T with U = S (.) F and
 V = S (.) P^T F, rank <= r. Solve U V^T x = S b by x = V alpha with
 beta = (U^T U + eps)^-1 U^T b_S and alpha = (V^T V + eps)^-1 beta.
 
-Shapes: F (n, r, B), b/mu/z (n, B). Where the JAX package stops
-gradients, this module detaches, so that values and (later) gradients
-follow the same rules.
+Gradients: what the JAX package stops gradients at (the seed, the masks,
+the validity flags, the ladder's output unless fallback_gradients says
+otherwise) is computed here under torch.no_grad() and kept in an
+LcpSaved; only the pinned solves (and, for the fallback gradients, the
+pieces they differentiate) carry the graph. Handing the LcpSaved back in
+(`saved=`) replays just those pieces: the analog of LCP_REMAT_POLICY,
+with which a checkpointed step's recompute never re-runs the seed, the
+kernel, the refine rounds or the ladder.
+
+Shapes: F (n, r, B), b/mu/z (n, B).
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -257,71 +267,188 @@ def _lcp_valid(meta: LcpMeta, F, cfm, b, mu, z):
     return torch.all(ok_n & ok_f, dim=0) & finite
 
 
+class LcpSaved(NamedTuple):
+    """What boxed_lcp_b decides without gradients, all detached: enough to
+    replay its differentiable part on the same inputs."""
+
+    z_seed: torch.Tensor  # (n, B) the seed's value
+    z_kernel: Optional[torch.Tensor]  # (n, B) on the card, the kernel's output
+    clamping: torch.Tensor  # (n, B) bool, the refined active set ...
+    upper: torch.Tensor
+    sign_u: torch.Tensor
+    at_hi: torch.Tensor
+    valid: torch.Tensor  # (B,) bool: the pinned solve is valid
+    z_fb: torch.Tensor  # (n, B) the ladder's output where it is not valid
+    # Kept for the fallback gradients only (None otherwise):
+    z_ladder: Optional[torch.Tensor] = None  # the rungs' output before the lazy select
+    all_ok: Optional[torch.Tensor] = None  # () bool: every world valid or seed-valid
+    valid_seed: Optional[torch.Tensor] = None  # (B,) bool, per rung ...
+    valid_soft: Optional[torch.Tensor] = None
+    valid_nf: Optional[torch.Tensor] = None
+    reclassified: Optional[Tuple[torch.Tensor, ...]] = None  # ladder output's masks
+
+
+def _seed(meta: LcpMeta, F, b, mu, z_warm, cfm, z_kernel=None):
+    """The iterative seed, and on the card the kernel's raw output (None
+    elsewhere): APGD (kernel K1/K1b on the card) or, for solver "pgs",
+    meta.iterations sweeps of PGS (no kernel in either package)."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    if meta.solver == "pgs":
+        return lcp_cuda.pgs_plain(meta, F, cfm, b, mu, z_warm), None
+    if F.device.type == "cuda" and z_kernel is None:
+        z_kernel = lcp_cuda.seed_kernel(meta, F, b, mu, z_warm, cfm)
+    return lcp_cuda.apgd_seed(meta, F, b, mu, z_warm, cfm, z_kernel=z_kernel), z_kernel
+
+
+def _soft_rungs(meta: LcpMeta, F, soft, b, mu, masks):
+    """The ladder's cfm-softened pinned solve and its ignore-friction rung
+    (friction rows neither clamp nor carry impulse)."""
+    clamping, upper, sign_u, at_hi = masks
+    isf, _ = _rows(meta, F.device)
+    z_soft = _pinned_solve(meta, F, soft, b, mu, *masks)
+    z_nf = _pinned_solve(meta, F, soft, b, mu, clamping & ~isf,
+                         torch.zeros_like(upper), sign_u, at_hi)
+    return z_soft, torch.where(isf, torch.zeros_like(z_nf), z_nf)
+
+
+def _pick_rung(valid_seed, valid_soft, valid_nf, z_seed, z_soft, z_nf):
+    """Per world, the first valid of seed, softened solve and
+    ignore-friction rung, else the seed (the reference's ladder order)."""
+    return torch.where(
+        valid_seed[None, :],
+        z_seed,
+        torch.where(
+            valid_soft[None, :],
+            z_soft,
+            torch.where(valid_nf[None, :], z_nf, z_seed),
+        ),
+    )
+
+
+@torch.no_grad()
+def _ladder(meta: LcpMeta, F, b, mu, cfm, fallback_cfm, fallback_gradients,
+            ladder_mode, z_seed, z_kernel, masks, z_pol) -> LcpSaved:
+    """Validity of the pinned solve, the failure ladder's rungs and the
+    impulse they give each world (BoxedLcpConstraintSolver.cpp:392-646)."""
+    valid = _lcp_valid(meta, F, cfm, b, mu, z_pol)
+    valid_seed = _lcp_valid(meta, F, cfm, b, mu, z_seed)
+    all_ok = torch.all(valid | valid_seed)
+    z_ladder = valid_soft = valid_nf = reclassified = None
+    if fallback_cfm:
+        soft = cfm + fallback_cfm
+        z_soft, z_nf = _soft_rungs(meta, F, soft, b, mu, masks)
+        valid_soft = _lcp_valid(meta, F, soft, b, mu, z_soft)
+        valid_nf = _lcp_valid(meta, F, soft, b, torch.zeros_like(mu), z_nf)
+        z_ladder = _pick_rung(valid_seed, valid_soft, valid_nf, z_seed, z_soft, z_nf)
+        # "lazy" runs the rungs only when some world has neither a valid
+        # pinned solve nor a valid seed; selecting the seed when none
+        # does gives the same values and gradients with no host sync.
+        z_fb = (
+            torch.where(all_ok, z_seed, z_ladder) if ladder_mode == "lazy" else z_ladder
+        )
+        if fallback_gradients == "reclassify":
+            # Classify the ladder's impulse (mu = 0 for worlds that fell
+            # to the ignore-friction rung), as the reference builds its
+            # gradient matrices from the ladder's mX.
+            mu_cls = torch.where(valid_soft[None, :], mu, torch.zeros_like(mu))
+            c2, u2, hi2 = _classify(meta, F, soft, b, mu_cls, z_ladder)
+            reclassified = (c2, u2, torch.sign(z_ladder), hi2)
+    else:
+        z_fb = z_seed
+    if not fallback_gradients:
+        z_ladder = all_ok = valid_seed = valid_soft = valid_nf = None
+    return LcpSaved(
+        z_seed, z_kernel, *masks, valid, z_fb, z_ladder, all_ok, valid_seed,
+        valid_soft, valid_nf, reclassified,
+    )
+
+
+def _fallback_with_gradients(meta: LcpMeta, F, b, mu, cfm, fallback_cfm,
+                             fallback_gradients, ladder_mode, z_seed,
+                             s: LcpSaved):
+    """The ladder's output with the gradients fallback_gradients asks for:
+    True differentiates the rungs themselves, "reclassify" one pinned
+    solve with the softened cfm on the masks of the ladder's impulse."""
+    if not fallback_cfm:
+        return z_seed
+    soft = cfm + fallback_cfm
+    if fallback_gradients == "reclassify":
+        mu_g = torch.where(s.valid_soft[None, :], mu, mu.detach())
+        z_grad = _pinned_solve(meta, F, soft, b, mu_g, *s.reclassified)
+        z_lad = s.z_ladder + (z_grad - z_grad.detach())
+    else:
+        masks = (s.clamping, s.upper, s.sign_u, s.at_hi)
+        z_lad = _pick_rung(s.valid_seed, s.valid_soft, s.valid_nf, z_seed,
+                           *_soft_rungs(meta, F, soft, b, mu, masks))
+    return torch.where(s.all_ok, z_seed, z_lad) if ladder_mode == "lazy" else z_lad
+
+
 def boxed_lcp_b(meta: LcpMeta, F, b, mu, z_warm, cfm=0.0, fallback_cfm=1e-4,
-                fallback_gradients=False, ladder_mode="lazy"):
+                fallback_gradients=False, ladder_mode="lazy",
+                saved: Optional[LcpSaved] = None, return_saved: bool = False):
     """Batched boxed LCP solve with the CFM-softened / ignore-friction
     failure ladder (BoxedLcpConstraintSolver.cpp:392-646 parity).
 
     The ladder rungs always run, with per-world selection, whatever
     `ladder_mode` says: the forward values of the JAX package's "lazy"
     mode (rungs behind a cond on "any world invalid") are the same, and
-    the cond would cost a device-to-host sync per step here.
+    the cond would cost a device-to-host sync per step here. Where the
+    lazy cond would not fire, "lazy" selects the seed as the JAX package
+    does, so the fallback gradients follow it too.
 
-    Args: F (n, r, B), b/mu/z_warm (n, B). Returns z (n, B).
+    fallback_gradients: False gives ladder-resolved worlds no impulse
+    gradient (the JAX package's default); "reclassify" differentiates one
+    softened pinned solve on the masks of the ladder's impulse; True
+    differentiates the rungs (and the seed) themselves.
+
+    saved: the LcpSaved of an earlier call with return_saved=True on the
+    same inputs. The call then runs only the differentiable pinned
+    solve(s) (and, for the fallback gradients, the seed's differentiable
+    part) on the saved masks: same values, same gradients, no seed and no
+    kernel launch.
+
+    Args: F (n, r, B), b/mu/z_warm (n, B). Returns z (n, B), or
+    (z, LcpSaved) with return_saved=True.
     """
-    from nimblephysics_tpu_torch.batched.lcp_cuda import apgd_seed
-
     if ladder_mode not in ("lazy", "always"):
         raise ValueError(f"unknown ladder_mode {ladder_mode!r}")
+    if fallback_gradients not in (False, True, "reclassify"):
+        raise ValueError(f"unknown fallback_gradients {fallback_gradients!r}")
+    if meta.solver not in ("apgd", "pgs"):
+        raise ValueError(f"unknown LCP solver {meta.solver!r}")
+    z_seed = None
     if fallback_gradients:
-        raise NotImplementedError(
-            "fallback_gradients='reclassify'/True come with the training "
-            "slice (ROADMAP queue 1 item 7)"
+        z_seed, z_kernel = _seed(
+            meta, F, b, mu, z_warm, cfm, None if saved is None else saved.z_kernel
         )
-    if meta.solver != "apgd" or meta.seed_pgs_sweeps:
-        raise NotImplementedError(
-            "the PGS seed and the PGS polish of the APGD seed (kernel K1b) "
-            "come with the default-config step (ROADMAP queue 1 item 6)"
+    if saved is None:
+        Fs, bs, mus = F.detach(), b.detach(), mu.detach()
+        with torch.no_grad():
+            if z_seed is None:
+                z_seed, z_kernel = _seed(meta, Fs, bs, mus, z_warm.detach(), cfm)
+            zs = z_seed.detach()
+            clamping, upper, at_hi = _classify(meta, Fs, cfm, bs, mus, zs)
+            sign_u = torch.sign(zs)
+            for _ in range(meta.refine_rounds):
+                clamping, upper, sign_u, at_hi = _refine_masks(
+                    meta, Fs, cfm, bs, mus, clamping, upper, sign_u, at_hi
+                )
+        masks = (clamping, upper, sign_u, at_hi)
+    else:
+        masks = (saved.clamping, saved.upper, saved.sign_u, saved.at_hi)
+    z_pol = _pinned_solve(meta, F, cfm, b, mu, *masks)
+    if saved is None:
+        saved = _ladder(
+            meta, Fs, bs, mus, cfm, fallback_cfm, fallback_gradients,
+            ladder_mode, zs, z_kernel, masks, z_pol.detach(),
         )
-    Fs, bs, mus = F.detach(), b.detach(), mu.detach()
-    z_seed = apgd_seed(meta, F, b, mu, z_warm, cfm)
-    zs = z_seed.detach()
-    clamping, upper, at_hi = _classify(meta, Fs, cfm, bs, mus, zs)
-    sign_u = torch.sign(zs)
-    for _ in range(meta.refine_rounds):
-        clamping, upper, sign_u, at_hi = _refine_masks(
-            meta, Fs, cfm, bs, mus, clamping, upper, sign_u, at_hi
-        )
-    z_pol = _pinned_solve(
-        meta, F, cfm, b, mu, clamping, upper, sign_u, at_hi=at_hi
-    )
-    valid = _lcp_valid(meta, Fs, cfm, bs, mus, z_pol.detach())
-    valid_seed = _lcp_valid(meta, Fs, cfm, bs, mus, zs)
-
-    if fallback_cfm:
-        soft = cfm + fallback_cfm
-        z_soft = _pinned_solve(
-            meta, F, soft, b, mu, clamping, upper, sign_u, at_hi=at_hi
-        )
-        valid_soft = _lcp_valid(meta, Fs, soft, bs, mus, z_soft.detach())
-        isf, _ = _rows(meta, F.device)
-        z_nf = _pinned_solve(
-            meta, F, soft, b, mu, clamping & ~isf, torch.zeros_like(upper),
-            sign_u, at_hi=at_hi,
-        )
-        z_nf = torch.where(isf, torch.zeros_like(z_nf), z_nf)
-        valid_nf = _lcp_valid(
-            meta, Fs, soft, bs, torch.zeros_like(mus), z_nf.detach()
-        )
-        z_fb = torch.where(
-            valid_seed[None, :],
-            z_seed,
-            torch.where(
-                valid_soft[None, :],
-                z_soft,
-                torch.where(valid_nf[None, :], z_nf, z_seed),
-            ),
+    if fallback_gradients:
+        z_fb = _fallback_with_gradients(
+            meta, F, b, mu, cfm, fallback_cfm, fallback_gradients,
+            ladder_mode, z_seed, saved,
         )
     else:
-        z_fb = z_seed
-    return torch.where(valid[None, :], z_pol, z_fb.detach())
+        z_fb = saved.z_fb
+    z = torch.where(saved.valid[None, :], z_pol, z_fb)
+    return (z, saved) if return_saved else z

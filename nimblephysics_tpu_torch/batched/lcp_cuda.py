@@ -1,16 +1,18 @@
-"""The APGD seed of the batched boxed LCP: a CUDA kernel for Hopper, and
-its plain PyTorch version.
+"""The APGD seed of the batched boxed LCP, with its projected Gauss-Seidel
+polish: a CUDA kernel for Hopper, and its plain PyTorch versions.
 
 Counterpart of nimblephysics_tpu/batched/lcp_pallas.py. `apgd_seed`
 mirrors apgd_seed_tpu there:
 
-  * a tensor on the CPU takes `apgd_plain`, the port of batched/lcp._apgd
-    (what the JAX package runs off the TPU);
+  * a tensor on the CPU takes `apgd_plain`, the port of batched/lcp._apgd,
+    then, when meta.seed_pgs_sweeps > 0, `pgs_plain`, the port of
+    batched/lcp._pgs (what the JAX package runs off the TPU);
   * a CUDA tensor launches `csrc/apgd_seed.cu` (which replaces the Pallas
-    kernel _apgd_kernel, see the note at the top of that file) on
-    detached inputs, then re-attaches one differentiable projected-
-    gradient step, as the TPU path ships that step's output. It launches
-    or raises; it never falls back to the plain version.
+    kernel _apgd_kernel in both its forms, K1 without the polish and K1b
+    with it; see the note at the top of that file) on detached inputs,
+    then re-attaches one differentiable projected-gradient step, as the
+    TPU path ships that step's output. It launches or raises; it never
+    falls back to the plain version.
 
 The kernel is compiled with nvcc at first use into csrc/build/ (a shared
 library with a plain C interface, loaded with ctypes). Nothing here is
@@ -86,6 +88,54 @@ def apgd_plain(meta: LcpMeta, F, cfm, b, mu, z0):
     return z
 
 
+def pgs_plain(meta: LcpMeta, F, cfm, b, mu, z0, sweeps=None):
+    """Projected Gauss-Seidel sweeps (port of batched/lcp._pgs), the plain
+    version of the kernel's polish (K1b).
+
+    `sweeps` sweeps (meta.iterations by default, as the PGS seed runs it)
+    over the rows in static order, with a running u = F^T z. Row i sets
+    z_i += (b_i - F_i . u - cfm z_i) inv_diag_i with inv_diag_i =
+    1/max(A_ii, 1e-12) where A_ii > 1e-12, else 0, then clips it to
+    [lo_i, hi_i], or for a friction row to +-mu_i z[findex_i] (no max with
+    0: min(max(x, -bound), bound), as jnp.clip gives), and adds
+    F_i^T dz_i to u. The JAX package rolls the same loop above 96 rows
+    with the same arithmetic. Rows are kept as a list, so the sweeps write
+    nothing in place and stay differentiable.
+    F (n, r, B), b/mu/z0 (n, B) -> z (n, B).
+    """
+    fidx = np.maximum(meta.findex, 0)
+    diag = _diag_A(F, cfm)
+    inv_diag = torch.where(
+        diag > 1e-12, 1.0 / torch.clamp(diag, min=1e-12), torch.zeros_like(diag)
+    )
+    lo_c, hi_c = _const_bounds(meta, F.dtype, F.device)
+    Fr = F.unbind(0)  # n x (r, B)
+    z = list(z0.unbind(0))
+    u = torch.sum(F * z0[:, None, :], dim=0)  # (r, B)
+    for _ in range(meta.iterations if sweeps is None else sweeps):
+        for i in range(meta.n):
+            Az_i = torch.sum(Fr[i] * u, dim=0) + cfm * z[i]
+            zi = z[i] + (b[i] - Az_i) * inv_diag[i]
+            if meta.is_friction[i]:
+                bound = mu[i] * z[fidx[i]]
+                zi = torch.minimum(torch.maximum(zi, -bound), bound)
+            else:
+                zi = torch.minimum(torch.maximum(zi, lo_c[i]), hi_c[i])
+            u = u + Fr[i] * (zi - z[i])
+            z[i] = zi
+    return torch.stack(z)
+
+
+def seed_plain(meta: LcpMeta, F, cfm, b, mu, z0):
+    """The APGD seed off the card: apgd_plain, then meta.seed_pgs_sweeps
+    sweeps of pgs_plain (apgd_seed_tpu's pure_seed, lcp_pallas.py:240-247).
+    """
+    z = apgd_plain(meta, F, cfm, b, mu, z0)
+    if meta.seed_pgs_sweeps:
+        z = pgs_plain(meta, F, cfm, b, mu, z, sweeps=meta.seed_pgs_sweeps)
+    return z
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
@@ -135,7 +185,7 @@ def build(verbose: bool = False) -> Tuple[Path, float, str]:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.apgd_seed_f32.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i,
+    lib.apgd_seed_f32.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i,
                                   ctypes.c_float, p]
     lib.apgd_seed_f32.restype = i
     lib.apgd_seed_smem_bytes.argtypes = [i, i]
@@ -164,9 +214,11 @@ def _static_rows(meta: LcpMeta, device: torch.device):
     return isf, fidx_t, lo[:, 0].contiguous(), hi[:, 0].contiguous()
 
 
-def apgd_cuda(meta: LcpMeta, F, b, mu, z0, cfm: float = 0.0):
+def apgd_cuda(meta: LcpMeta, F, b, mu, z0, cfm: float = 0.0,
+              pgs_sweeps: int = 0):
     """Launch the kernel: F (n, r, B), b/mu/z0 (n, B), f32, contiguous, on
-    one CUDA device -> z (n, B). Counts each launch in apgd_seed.launches.
+    one CUDA device -> z (n, B). pgs_sweeps > 0 adds the polish (K1b) in
+    the same launch. Counts each launch in apgd_seed.launches.
     """
     n, r, B = F.shape
     for name, x, shape in (("F", F, (n, r, B)), ("b", b, (n, B)),
@@ -200,7 +252,7 @@ def apgd_cuda(meta: LcpMeta, F, b, mu, z0, cfm: float = 0.0):
     err = lib.apgd_seed_f32(
         F.data_ptr(), b.data_ptr(), mu.data_ptr(), z0.data_ptr(), z.data_ptr(),
         isf.data_ptr(), fidx.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        n, r, B, int(meta.iterations), float(cfm),
+        n, r, B, int(meta.iterations), int(pgs_sweeps), float(cfm),
         torch.cuda.current_stream(F.device).cuda_stream,
     )
     if err != 0:
@@ -222,21 +274,33 @@ def pgd_step(meta: LcpMeta, F, cfm, b, mu, z):
     return torch.where(isf, torch.minimum(torch.maximum(y, -bound), bound), zn)
 
 
-def apgd_seed(meta: LcpMeta, F, b, mu, z0, cfm=0.0):
-    """APGD seed of boxed_lcp_b.
-
-    CPU tensors: apgd_plain (gradient-carrying). CUDA tensors: the kernel
-    on detached inputs plus `pgd_step` (lcp_pallas.apgd_seed_tpu parity).
-    """
-    if F.device.type == "cpu":
-        return apgd_plain(meta, F, cfm, b, mu, z0)
-    if F.device.type != "cuda":
-        raise ValueError(f"apgd_seed: no kernel for device {F.device}")
-    z_k = apgd_cuda(
+def seed_kernel(meta: LcpMeta, F, b, mu, z0, cfm=0.0):
+    """The kernel's output for apgd_seed's inputs: one launch on detached
+    float32 copies, with meta.seed_pgs_sweeps sweeps of polish (K1b when
+    that is > 0), as apgd_pallas passes them into the Pallas kernel."""
+    return apgd_cuda(
         meta, F.detach().contiguous(), b.detach().contiguous(),
         mu.detach().contiguous(), z0.detach().contiguous(), float(cfm),
+        pgs_sweeps=int(meta.seed_pgs_sweeps),
     )
-    return pgd_step(meta, F, cfm, b, mu, z_k)
+
+
+def apgd_seed(meta: LcpMeta, F, b, mu, z0, cfm=0.0, z_kernel=None):
+    """APGD seed of boxed_lcp_b.
+
+    CPU tensors: seed_plain (gradient-carrying). CUDA tensors: the kernel
+    on detached inputs plus `pgd_step` (lcp_pallas.apgd_seed_tpu parity).
+    z_kernel, the kernel's output on these inputs from an earlier
+    seed_kernel call, re-attaches the step to it without a launch (what a
+    checkpoint's recompute needs, as apgd_seed_tpu name-saves it).
+    """
+    if F.device.type == "cpu":
+        return seed_plain(meta, F, cfm, b, mu, z0)
+    if F.device.type != "cuda":
+        raise ValueError(f"apgd_seed: no kernel for device {F.device}")
+    if z_kernel is None:
+        z_kernel = seed_kernel(meta, F, b, mu, z0, cfm)
+    return pgd_step(meta, F, cfm, b, mu, z_kernel)
 
 
 apgd_seed.launches = 0  # kernel launches since the last reset

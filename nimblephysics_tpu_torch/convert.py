@@ -4,7 +4,8 @@
 of plain numbers and numpy arrays, so that a world defined elsewhere (the
 JAX package's, dumped field by field) steps here with the same
 parameters. `state_to_torch` moves an (nv, B) state and (n, B)
-impulses onto a device.
+impulses onto a device. `policy_from_arrays` carries an MLP policy's
+weights across (the pytree {w1, b1, w2, b2} of bench.py's policy).
 
 Spec layout (every array-like is converted with np.asarray):
 
@@ -35,6 +36,7 @@ import torch
 
 from nimblephysics_tpu_torch.dynamics.shapes import ShapeSpec
 from nimblephysics_tpu_torch.dynamics.skeleton import Skeleton
+from nimblephysics_tpu_torch.parallel.mesh import MlpPolicy
 from nimblephysics_tpu_torch.simulation.world import SolverConfig, World
 
 _JOINT_VECTORS = (
@@ -101,3 +103,20 @@ def state_to_torch(
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device).contiguous()
 
     return t(q), t(v), None if z is None else t(z)
+
+
+def policy_from_arrays(w1, b1, w2, b2, device="cuda",
+                       dtype: torch.dtype = torch.float32) -> MlpPolicy:
+    """An MlpPolicy holding the given weights: w1 (hidden, 2nv),
+    b1 (hidden, 1), w2 (na, hidden), b2 (na, 1), as numpy or array-likes,
+    on `device` in `dtype`."""
+    w1, b1, w2, b2 = (np.asarray(x) for x in (w1, b1, w2, b2))
+    hidden, state_size = w1.shape
+    policy = MlpPolicy(state_size, w2.shape[0], hidden, device=device, dtype=dtype)
+    with torch.no_grad():
+        for p, x in zip((policy.w1, policy.b1, policy.w2, policy.b2),
+                        (w1, b1, w2, b2)):
+            if tuple(p.shape) != x.shape:
+                raise ValueError(f"weight of shape {x.shape}, expected {tuple(p.shape)}")
+            p.copy_(torch.as_tensor(x, dtype=dtype))
+    return policy

@@ -1,12 +1,14 @@
-// APGD seed of the batched boxed LCP, one world per thread, for Hopper
-// (sm_90a). Built by nimblephysics_tpu_torch/batched/lcp_cuda.py with
+// APGD seed of the batched boxed LCP, with its optional projected
+// Gauss-Seidel polish, one world per thread, for Hopper (sm_90a). Built by
+// nimblephysics_tpu_torch/batched/lcp_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
 // into a shared library with a plain C interface, loaded with ctypes.
 //
 // Replaces the Pallas TPU kernel nimblephysics_tpu/batched/lcp_pallas.py
-// ::_apgd_kernel (launched by apgd_pallas) for pgs_sweeps = 0. Per world,
-// with A = F F^T + cfm I and F (n, r):
+// ::_apgd_kernel (launched by apgd_pallas), both of its forms: K1
+// (pgs_sweeps = 0) and K1b (pgs_sweeps > 0, lcp_pallas.py:118-149). Per
+// world, with A = F F^T + cfm I and F (n, r):
 //   * 6 power iterations v <- A v / |A v| (rsqrt of max(|A v|^2, 1e-24),
 //     so a world whose rows are all zero gets v = 0), one Rayleigh
 //     quotient, L = max(1.05 ray, max_i A_ii) + 1e-9, step = 1/L;
@@ -15,19 +17,32 @@
 //     [lo, hi] (hi = +inf is passed as is), friction rows to
 //     +-mu_i max(z[findex_i], 0) with the bounding normal row already
 //     projected. findex of a friction row must name a non-friction row.
+//   * K1b: then `pgs_sweeps` projected Gauss-Seidel sweeps over the rows
+//     in static order (batched/lcp._pgs): with a running u = F^T z,
+//     row i takes z_i += (b_i - F_i . u - cfm z_i) / A_ii (0 where
+//     A_ii <= 1e-12), clipped to [lo_i, hi_i], or for a friction row to
+//     +-mu_i z[findex_i] (no max with 0, as the TPU kernel), then
+//     u += F_i^T dz_i. As on the TPU, z stays per row on chip and u runs
+//     along in registers; the inverse diagonal takes the z_prev slots the
+//     Nesterov loop no longer needs, so the polish needs no more shared
+//     memory than K1. Whether there is a polish is a template flag, so
+//     K1's instantiation carries none of its code or registers (a
+//     runtime branch cost K1 16% of its time).
 //
 // What bounds it on this card: one operator application is 2 n r FMAs,
 // and a world takes 31 of them (6 power iterations, the Rayleigh quotient,
-// 24 iterations on the main path) against one read of F. At n = 60,
-// r = 9, B = 4096 that is ~0.33 GFLOP against ~12.8 MB, a few
-// microseconds either way at the card's f32 peak and memory rate. What
-// actually bounds this design is latency: one thread per world gives
-// 4096 threads for 132 SMs. The design does two things about it: a block
-// is one warp of 32 worlds, so the 128 blocks spread over the SMs, and
-// the block stages its worlds' F, b, mu and iterate in shared memory once
-// (as the TPU kernel keeps F in VMEM), so the 31 operator applications
-// read shared memory, laid out [row][col][world] so that a warp's 32
-// loads hit 32 banks. A warp per world (rows across lanes) is later work.
+// 24 iterations on the throughput path; 39 under the default config, whose
+// 16 sweeps add about 16 more) against one read of F. At n = 60, r = 9,
+// B = 4096 that is under 1 GFLOP against ~12.8 MB, a few microseconds
+// either way at the card's f32 peak and memory rate. What actually bounds
+// this design is latency: one thread per world gives 4096 threads for 132
+// SMs, and a Gauss-Seidel sweep is sequential across rows. The design does
+// two things about it: a block is one warp of 32 worlds, so the 128
+// blocks spread over the SMs, and the block stages its worlds' F, b, mu
+// and iterate in shared memory once (as the TPU kernel keeps F in VMEM),
+// so every operator application and sweep reads shared memory, laid out
+// [row][col][world] so that a warp's 32 loads hit 32 banks. A warp per
+// world (rows across lanes) is later work.
 
 #include <cfloat>
 
@@ -38,7 +53,7 @@ namespace {
 constexpr int kWorldsPerBlock = 32;
 constexpr int kMaxRank = 16;
 
-template <int R>
+template <int R, bool kPolish>
 __global__ void apgd_seed_kernel(const float* __restrict__ F,
                                  const float* __restrict__ b,
                                  const float* __restrict__ mu,
@@ -48,7 +63,8 @@ __global__ void apgd_seed_kernel(const float* __restrict__ F,
                                  const int* __restrict__ findex,
                                  const float* __restrict__ lo,
                                  const float* __restrict__ hi,
-                                 int n, int B, int iterations, float cfm) {
+                                 int n, int B, int iterations, int pgs_sweeps,
+                                 float cfm) {
   extern __shared__ float smem[];
   const int t = threadIdx.x;
   const int w = blockIdx.x * kWorldsPerBlock + t;
@@ -162,6 +178,42 @@ __global__ void apgd_seed_kernel(const float* __restrict__ F,
       }
     }
   }
+
+  if (kPolish) {
+    // K1b. u = F^T z from the Nesterov loop's z; ZP(i) = 1 / A_ii.
+#pragma unroll
+    for (int j = 0; j < R; ++j) u[j] = 0.0f;
+    for (int i = 0; i < n; ++i) {
+      const float zi = Z(i);
+      float d = 0.0f;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        u[j] += FF(i, j) * zi;
+        d += FF(i, j) * FF(i, j);
+      }
+      d += cfm;
+      ZP(i) = d > 1e-12f ? 1.0f / fmaxf(d, 1e-12f) : 0.0f;
+    }
+    for (int s = 0; s < pgs_sweeps; ++s) {
+      for (int i = 0; i < n; ++i) {
+        const float zi = Z(i);
+        float az = cfm * zi;
+#pragma unroll
+        for (int j = 0; j < R; ++j) az += FF(i, j) * u[j];
+        float x = zi + (sb[i * kWorldsPerBlock + t] - az) * ZP(i);
+        if (sisf[i]) {
+          const float bound = smu[i * kWorldsPerBlock + t] * Z(sfidx[i]);
+          x = fminf(fmaxf(x, -bound), bound);
+        } else {
+          x = fminf(fmaxf(x, slo[i]), shi[i]);
+        }
+        const float dz = x - zi;
+#pragma unroll
+        for (int j = 0; j < R; ++j) u[j] += FF(i, j) * dz;
+        Z(i) = x;
+      }
+    }
+  }
   for (int i = 0; i < n; ++i) z_out[(size_t)i * B + w] = Z(i);
 #undef FF
 #undef Z
@@ -172,15 +224,16 @@ template <int R>
 cudaError_t launch(const float* F, const float* b, const float* mu,
                    const float* z0, float* z, const int* isf, const int* fidx,
                    const float* lo, const float* hi, int n, int B,
-                   int iterations, float cfm, size_t smem,
+                   int iterations, int pgs_sweeps, float cfm, size_t smem,
                    cudaStream_t stream) {
+  auto kernel = pgs_sweeps > 0 ? apgd_seed_kernel<R, true>
+                                : apgd_seed_kernel<R, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      apgd_seed_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int blocks = (B + kWorldsPerBlock - 1) / kWorldsPerBlock;
-  apgd_seed_kernel<R><<<blocks, kWorldsPerBlock, smem, stream>>>(
-      F, b, mu, z0, z, isf, fidx, lo, hi, n, B, iterations, cfm);
+  kernel<<<blocks, kWorldsPerBlock, smem, stream>>>(
+      F, b, mu, z0, z, isf, fidx, lo, hi, n, B, iterations, pgs_sweeps, cfm);
   return cudaGetLastError();
 }
 
@@ -207,20 +260,23 @@ int apgd_seed_smem_limit(int device) {
 }
 
 // F (n, r, B), b/mu/z0/z (n, B) f32 contiguous on the device; per-row
-// is_friction, findex (>= 0), lo, hi of length n. Launches on `stream`
-// and returns cudaGetLastError() after the launch (0 = launched).
+// is_friction, findex (>= 0), lo, hi of length n; pgs_sweeps = 0 for K1,
+// > 0 for K1b's polish. Launches on `stream` and returns
+// cudaGetLastError() after the launch (0 = launched).
 int apgd_seed_f32(const float* F, const float* b, const float* mu,
                   const float* z0, float* z, const int* is_friction,
                   const int* findex, const float* lo, const float* hi, int n,
-                  int r, int B, int iterations, float cfm, void* stream) {
-  if (n <= 0 || B <= 0 || r < 1 || r > kMaxRank)
+                  int r, int B, int iterations, int pgs_sweeps, float cfm,
+                  void* stream) {
+  if (n <= 0 || B <= 0 || r < 1 || r > kMaxRank || iterations < 0 ||
+      pgs_sweeps < 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = apgd_seed_smem_bytes(n, r);
   cudaStream_t s = (cudaStream_t)stream;
 #define CASE(R)                                                           \
   case R:                                                                 \
     return (int)launch<R>(F, b, mu, z0, z, is_friction, findex, lo, hi, n, \
-                          B, iterations, cfm, smem, s);
+                          B, iterations, pgs_sweeps, cfm, smem, s);
   switch (r) {
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
     CASE(9) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14) CASE(15) CASE(16)

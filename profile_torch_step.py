@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Where a step of nimblephysics_tpu_torch's forward rollout spends its
-time on one NVIDIA GPU.
+"""Where a step of nimblephysics_tpu_torch's main path spends its time on
+one NVIDIA GPU.
 
     python3 profile_torch_step.py [--trace PATH]
 
 Builds the main path of chip_smoke.py with its own functions (4096
-half-cheetahs, float32, SolverConfig.throughput(), warm-started
-impulses), settles it on the ground with chip_smoke.STEPS untraced
-steps, then traces TRACED_STEPS steps with torch.profiler. Prints, per
-step: host milliseconds, CUDA kernel launches, summed kernel time and
-the device's busy share of the wall time, and the kernels that take the
-most device time; with --trace, writes a Chrome trace there. Exits
-non-zero where there is no CUDA device.
+half-cheetahs, float32) and traces three cells with torch.profiler:
+  * the forward rollout under SolverConfig.throughput() and under the
+    default SolverConfig (warm-started impulses, settled on the ground
+    with chip_smoke.STEPS untraced steps), TRACED_STEPS steps each;
+  * one training step (train_step_batched, horizon TRACED_STEPS, hidden
+    chip_smoke.HIDDEN, the default SolverConfig) after an untraced one.
+Prints, per env-step of each cell: host milliseconds, CUDA kernel
+launches, summed kernel time and the device's busy share of the wall
+time, and the kernels that take the most device time; with --trace,
+writes a Chrome trace of each cell there (PATH with the cell's name
+before the suffix). Exits non-zero where there is no CUDA device.
 """
 
 from __future__ import annotations
@@ -44,29 +48,16 @@ def _union_us(intervals):
     return total
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--trace", help="write a Chrome trace to this path")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("profile_torch_step: no CUDA device", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    _, q0, v0, eng = chip_smoke.make_engine(dev)
-    rng = np.random.RandomState(chip_smoke.SEED)
-    carry, u = chip_smoke.rollout_start(eng, q0, v0, rng, dev)
-    carry = chip_smoke.rollout(eng, carry, u, chip_smoke.STEPS)
-    torch.cuda.synchronize()
-
+def profile(label, fn, steps, trace=None):
+    """Trace fn() (`steps` env-steps per world), print and return the
+    per-step summary."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        chip_smoke.rollout(eng, carry, u, TRACED_STEPS)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    n = TRACED_STEPS
+    n = steps
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = _union_us([(e.time_range.start, e.time_range.end) for e in kernels])
@@ -82,6 +73,7 @@ def main() -> int:
     )
     kernel_us = sum(v[1] for v in by_name.values())
     summary = {
+        "cell": label,
         "gpu": torch.cuda.get_device_name(0),
         "batch": chip_smoke.BATCH,
         "steps_traced": n,
@@ -91,7 +83,7 @@ def main() -> int:
         "kernel_ms_per_step": kernel_us / n / 1e3,
         "device_busy_share": busy_us / wall_us,
     }
-    print(f"per step: host {summary['host_ms_per_step']:.3f} ms, "
+    print(f"{label}, per step: host {summary['host_ms_per_step']:.3f} ms, "
           f"{summary['kernel_launches_per_step']:.0f} kernel launches, "
           f"{summary['device_events_per_step']:.0f} device events, device "
           f"kernels {summary['kernel_ms_per_step']:.3f} ms, busy share "
@@ -99,11 +91,49 @@ def main() -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     for name, (count, us) in top:
         print(f"  {us / n:9.1f} us/step {count / n:6.0f}x/step  {name[:90]}")
-    if args.trace:
-        out = Path(args.trace)
+    if trace:
+        out = Path(trace)
+        out = out.with_name(f"{out.stem}_{label}{out.suffix}")
         out.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(out))
-    print(json.dumps(summary))
+    return summary
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--trace", help="write Chrome traces to this path")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_step: no CUDA device", file=sys.stderr)
+        return 2
+    from nimblephysics_tpu_torch.convert import policy_from_arrays
+    from nimblephysics_tpu_torch.parallel import train_step_batched
+    from nimblephysics_tpu_torch.simulation import SolverConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    summaries = []
+    for label, cfg in (("forward_throughput", None), ("forward_default", SolverConfig())):
+        _, q0, v0, eng = chip_smoke.make_engine(dev, cfg)
+        rng = np.random.RandomState(chip_smoke.SEED)
+        carry, u = chip_smoke.rollout_start(eng, q0, v0, rng, dev)
+        carry = chip_smoke.rollout(eng, carry, u, chip_smoke.STEPS)
+        torch.cuda.synchronize()
+        summaries.append(profile(
+            label, lambda: chip_smoke.rollout(eng, carry, u, TRACED_STEPS),
+            TRACED_STEPS, args.trace))
+
+    _, q0, v0, eng = chip_smoke.make_engine(dev, SolverConfig())
+    states, weights = chip_smoke.train_start(
+        q0, v0, np.random.RandomState(chip_smoke.SEED + 1), dev)
+    train = train_step_batched(eng, policy_from_arrays(*weights, device=dev),
+                               TRACED_STEPS, chip_smoke.LEARNING_RATE)
+    train(states)
+    torch.cuda.synchronize()
+    summaries.append(profile("train_default", lambda: train(states),
+                             TRACED_STEPS, args.trace))
+    print(json.dumps(summaries))
     return 0
 
 

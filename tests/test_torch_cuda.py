@@ -1,5 +1,7 @@
-"""Card-only tests of nimblephysics_tpu_torch: the APGD seed kernel
-against its plain PyTorch version in float32, at the main path's shape.
+"""Card-only tests of nimblephysics_tpu_torch: the APGD seed kernel, with
+and without its Gauss-Seidel polish (K1 and K1b), against its plain
+PyTorch version in float32 at the main path's shape, and the training
+step's kernel launches and gradients.
 
 They need an NVIDIA GPU and nvcc and skip elsewhere. This file imports
 neither jax nor the JAX package, so that it runs where only PyTorch is
@@ -12,9 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-# float32 tolerance of the kernel against the plain version, relative to
-# a world's impulse scale 1 + max|z| (the readings are in chip_smoke.py).
+# float32 tolerances of the kernel against the plain version, relative to
+# a world's impulse scale 1 + max|z| (the readings are in chip_smoke.py):
+# K1, and K1b with its 16 sweeps of polish.
 KERNEL_TOL = 1e-5
+PGS_TOL = 1e-4
 
 
 def _cuda():
@@ -23,13 +27,13 @@ def _cuda():
     return torch.device("cuda")
 
 
-def _engine_and_lcps(dev, B=1024):
+def _engine_and_lcps(dev, B=1024, default_config=False):
     from nimblephysics_tpu_torch.batched import BatchedEngine
     from nimblephysics_tpu_torch.models import half_cheetah
     from nimblephysics_tpu_torch.simulation import SolverConfig
 
     world, q0, _ = half_cheetah()
-    world.solver = SolverConfig.throughput()
+    world.solver = SolverConfig() if default_config else SolverConfig.throughput()
     eng = BatchedEngine(world, device=dev)
     rng = np.random.RandomState(0)
 
@@ -109,3 +113,53 @@ def test_wrapper_raises_on_float64():
     F, b, mu, z0 = (x.double() for x in lcps["random"])
     with pytest.raises(TypeError, match="float32"):
         lcp_cuda.apgd_cuda(eng.meta, F, b, mu, z0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["engine_lcp", "random"])
+def test_k1b_kernel_matches_plain(case):
+    """Default config: one launch runs the APGD and its 16 sweeps of polish,
+    against apgd_plain then pgs_plain."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    eng, lcps = _engine_and_lcps(_cuda(), default_config=True)
+    meta = eng.meta
+    assert meta.seed_pgs_sweeps == 16
+    F, b, mu, z0 = lcps[case]
+    before = lcp_cuda.apgd_seed.launches
+    got = lcp_cuda.seed_kernel(meta, F, b, mu, z0)
+    want = lcp_cuda.seed_plain(meta, F, 0.0, b, mu, z0)
+    torch.cuda.synchronize()
+    assert lcp_cuda.apgd_seed.launches == before + 1
+    scale = 1.0 + want.abs().amax(dim=0)
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= PGS_TOL * scale).all()
+
+
+@pytest.mark.cuda
+def test_training_step_launches_the_kernel_once_per_step():
+    """A training step of horizon H launches the kernel H times (the
+    forward; the remat'd backward replays the saved seed), and its loss
+    and gradients are finite."""
+    from nimblephysics_tpu_torch.batched import BatchedEngine, lcp_cuda
+    from nimblephysics_tpu_torch.models import half_cheetah
+    from nimblephysics_tpu_torch.parallel import MlpPolicy, train_step_batched
+
+    dev = _cuda()
+    world, q0, v0 = half_cheetah()  # the default SolverConfig: K1b
+    eng = BatchedEngine(world, device=dev)
+    B, H = 64, 3
+    rng = np.random.RandomState(1)
+    x0 = np.concatenate([q0, v0])
+    states = np.tile(x0[:, None], (1, B)) + 0.01 * rng.randn(len(x0), B)
+    states = torch.as_tensor(states, dtype=torch.float32, device=dev)
+    policy = MlpPolicy(len(x0), world.action_size, 16, device=dev)
+    train = train_step_batched(eng, policy, horizon=H, learning_rate=1e-3)
+    lcp_cuda.apgd_seed.launches = 0
+    res = train(states)
+    torch.cuda.synchronize()
+    assert lcp_cuda.apgd_seed.launches == H
+    assert torch.isfinite(res.loss) and torch.isfinite(res.states).all()
+    for p in policy.parameters():
+        assert torch.isfinite(p.grad).all()
+    assert any(float(p.grad.abs().max()) > 0 for p in policy.parameters())

@@ -106,7 +106,7 @@ def test_kernel_wrapper_refuses_cpu_tensors_without_launching():
 
 
 @pytest.mark.parametrize(
-    "what", ["pgs_seed", "islands", "contact_cap", "body_params", "motor"]
+    "what", ["islands", "contact_cap", "body_params", "motor"]
 )
 def test_off_slice_options_raise(what):
     import dataclasses
@@ -118,13 +118,6 @@ def test_off_slice_options_raise(what):
     world, _, _ = half_cheetah()
     world.solver = SolverConfig.throughput()
     kw = dict(device="cpu", dtype=torch.float64)
-    if what == "pgs_seed":
-        world.solver = SolverConfig()  # default: 16 PGS polish sweeps
-        eng = BatchedEngine(world, **kw)
-        q = torch.zeros(9, 2, dtype=torch.float64)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.step(q, q, q)
-        return
     if what == "islands":
         from nimblephysics_tpu_torch.dynamics import PRISMATIC, ShapeSpec, Skeleton
 

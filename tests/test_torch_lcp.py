@@ -175,11 +175,16 @@ def test_apgd_seed_on_cpu_takes_plain_path(problems):
 
 
 def test_unsupported_solver_options_raise(problems):
+    """Names the port does not know raise instead of running something
+    else (the default config, solver "pgs" and both fallback-gradient
+    rules run: tests/test_torch_pgs.py)."""
     import dataclasses
 
     jm, tm, out = problems
     args = [t64(x) for x in out["contact"]]
-    with pytest.raises(NotImplementedError, match="K1b"):
-        tlcp.boxed_lcp_b(dataclasses.replace(tm, seed_pgs_sweeps=16), *args)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tlcp.boxed_lcp_b(tm, *args, fallback_gradients="reclassify")
+    with pytest.raises(ValueError, match="ladder_mode"):
+        tlcp.boxed_lcp_b(tm, *args, ladder_mode="deferred")
+    with pytest.raises(ValueError, match="fallback_gradients"):
+        tlcp.boxed_lcp_b(tm, *args, fallback_gradients="approximate")
+    with pytest.raises(ValueError, match="solver"):
+        tlcp.boxed_lcp_b(dataclasses.replace(tm, solver="dantzig"), *args)

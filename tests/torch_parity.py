@@ -115,3 +115,60 @@ def n(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def small_contact_metas(**kw):
+    """(JAX LcpMeta, port LcpMeta) of a hand-made plan of 4 contacts
+    (12 rows: normal, friction, friction), with the given knobs."""
+    from nimblephysics_tpu.constraint.lcp import LcpMeta as JaxMeta
+
+    from nimblephysics_tpu_torch.constraint.lcp import LcpMeta
+
+    findex = np.full(12, -1, np.int32)
+    findex[1::3] = findex[2::3] = np.arange(0, 12, 3)
+    isf = findex >= 0
+    return (JaxMeta(findex=findex, is_friction=isf, **kw),
+            LcpMeta(findex=findex, is_friction=isf, **kw))
+
+
+def small_contact_problem(seed, B, r=4, negative_normals=False):
+    """Seeded F (12, r, B), b, mu (0.9 on friction rows), z0 for the small
+    contact plan; negative_normals lets warm-start impulses go below 0."""
+    rng = np.random.RandomState(seed)
+    F = 0.5 * rng.randn(12, r, B)
+    b = rng.randn(12, B)
+    mu = np.where(np.arange(12)[:, None] % 3 > 0, 0.9, 0.0) * np.ones((1, B))
+    z0 = 0.1 * rng.randn(12, B)
+    return F, b, mu, (z0 if negative_normals else np.abs(z0))
+
+
+# The wedged island of tests/test_lcp_ladder.py: 2 contacts, mu ~ 25, a
+# rank-2 Delassus operator. The pinned active-set solve and the seed both
+# fail validity, and the cfm-softened rung of the ladder serves the world.
+_WEDGED_F = np.array([[-0.331251, 0.316671], [0.418912, 0.296337],
+                      [-0.190547, 0.004128], [-0.104258, -0.010608],
+                      [0.102123, -0.012412], [-0.083917, -0.617333]])
+_WEDGED_B = np.array([0.003603, -0.015651, 0.0003, 0.012215, -0.002442, -0.00458])
+_WEDGED_MU = np.array([0.0, 25.286028, 25.286028, 0.0, 25.286028, 25.286028])
+
+
+def wedged_island():
+    """(JAX meta, port meta, F, b, mu, z0) for 4 worlds: 0-1 the wedged
+    island, 2-3 healthy resting contacts (test_always_mode_matches_lazy's
+    batch). Meta: 24 APGD iterations, 3 refine rounds, 16 PGS sweeps."""
+    from nimblephysics_tpu.constraint.lcp import LcpMeta as JaxMeta
+
+    from nimblephysics_tpu_torch.constraint.lcp import LcpMeta
+
+    findex = np.array([-1, 0, 0, -1, 3, 3], np.int32)
+    kw = dict(findex=findex, is_friction=findex >= 0, iterations=24,
+              refine_rounds=3, seed_pgs_sweeps=16)
+    W = 4
+    F = np.repeat(_WEDGED_F[:, :, None], W, axis=2)
+    b = np.repeat(_WEDGED_B[:, None], W, axis=1)
+    mu = np.repeat(_WEDGED_MU[:, None], W, axis=1)
+    F[:, :, 2:] = np.array([[1.0, 0.0], [0.0, 0.5], [0.3, 0.1],
+                            [0.9, 0.05], [0.1, 0.6], [0.2, 0.2]])[:, :, None]
+    b[:, 2:] = np.array([0.2, 0.0, 0.0, 0.15, 0.0, 0.0])[:, None]
+    mu[:, 2:] = np.array([0.0, 0.9, 0.9, 0.0, 0.9, 0.9])[:, None]
+    return JaxMeta(**kw), LcpMeta(**kw), F, b, mu, np.zeros((6, W))
