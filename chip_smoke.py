@@ -5,14 +5,18 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. the card's name and power limit;
-  2. build the APGD seed kernel from the checkout's CUDA source;
+  2. build the APGD seed kernel from the checkout's CUDA source, with
+     ptxas's registers and spills for each instantiation;
   3. the kernel against its plain PyTorch version, float32 on the card, on
      (a) the LCP the engine assembles for half-cheetahs on the ground and
      (b) a seeded random LCP of the same shape, with times and the bound;
      the card's whole seed (kernel + the re-attached projected-gradient
      step) against the same step on the plain version; and, which must
      miss the tolerance, the plain version with one Nesterov step fewer
-     and the kernel's output without the step;
+     and the kernel's output without the step; the launch plan, resident
+     warps per SM, the time at 4096 and 8192 worlds, and the kernel
+     against its plain version and its time on the box-stack LCP (48
+     contacts, n = 144, r = 18);
   4. the forward rollout: 4096 half-cheetahs, SolverConfig.throughput(),
      float32, warm-started impulses, 100 steps (as bench.py runs the JAX
      package), with the kernel's launch count over the timed call;
@@ -24,8 +28,9 @@ Phases (any failure exits non-zero and prints no result line):
      Gauss-Seidel polish (K1b) against apgd_plain + pgs_plain on the
      engine's LCP and on the seeded random LCP, with times and the bound,
      and a planted fault (the plain polish one sweep short, or with its
-     last sweep in reverse row order) that must miss the tolerance; then
-     the 100-step warm-started rollout at this config;
+     last sweep in reverse row order) that must miss the tolerance, and as
+     in phase 3 the plan, occupancy, 8192 worlds and the box-stack LCP;
+     then the 100-step warm-started rollout at this config;
   7. training: train_step_batched (4096 worlds, horizon 100, hidden 64,
      float32) under the default config and under throughput(), one
      warm-up call and one timed call each, with the kernel's launches,
@@ -66,9 +71,10 @@ CHECK_WORLDS = 256
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # Kernel vs plain, float32, relative to a world's impulse scale
-# 1 + max|z|. Measured on the H100: 1.7e-7 on the engine's LCP and
-# 1.1e-6 on the random one (PERF.md); the limit is ~10x the larger. The
-# plain seed with one Nesterov step fewer must land above it.
+# 1 + max|z|. Measured on the H100 (PERF.md): 2.0e-7 on the engine's LCP
+# and 1.0e-6 on the random one with a warp per world (1.7e-7 and 1.1e-6
+# with one thread per world); the limit is ~10x the larger. The plain
+# seed with one Nesterov step fewer must land above it.
 KERNEL_TOL = 1e-5
 # Card f32 vs CPU f64, one step from the same state. q_next = q + dt v
 # integrates the input v (parallel updates): float32 rounding only.
@@ -92,8 +98,9 @@ DV_MAX = 0.3
 # relative to 1 + max|z|. The sweeps are sequential, so the two summation
 # orders' rounding carries from row to row; on the random LCP (A = F F^T
 # of rank 9 in 60 rows, z up to ~27) nothing damps it along A's null
-# space. Read on the H100 (PERF.md): 2.4e-7 on the engine's LCP, 1.25e-5
-# on the random one; the limit is 8x the larger. The plain polish one
+# space. Read on the H100 (PERF.md): 4.3e-7 on the engine's LCP, 1.0e-5
+# on the random one with a warp per world (2.4e-7 and 1.25e-5 with one
+# thread per world); the limit is ~8x the larger. The plain polish one
 # sweep short lands at 5.9e-3 and 9.2e-2.
 PGS_TOL = 1e-4
 # Training: bench.py's width.
@@ -108,6 +115,12 @@ GRAD_WORLDS = 64
 GRAD_HORIZON = 4
 GRAD_COS = 0.999999
 GRAD_REL = 2e-5
+# The kernel alone is also timed at 8192 worlds (the README's best batch)
+# and on the box-stack LCP the JAX package names at lcp_pallas.py:207-210:
+# 48 contacts of a normal and two friction rows, n = 144, rank 18.
+WIDE_BATCH = 8192
+BOX_CONTACTS = 48
+BOX_RANK = 18
 
 
 def check(cond, msg):
@@ -150,6 +163,80 @@ def apgd_bound_ms(n, r, B, iterations, pgs_sweeps=0):
 
 def _on(dev, x):
     return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev).contiguous()
+
+
+def ptxas_report(log):
+    """{(rank width, rows per lane, polish): (registers, spill-store
+    bytes)} of each kernel instantiation, from nvcc -Xptxas -v."""
+    out = {}
+    for chunk in log.split("Compiling entry function")[1:]:
+        m = re.search(r"apgd_seed_kernelILi(\d+)ELi(\d+)ELb([01])E", chunk)
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        if m and regs:
+            out[int(m[1]), int(m[2]), m[3] == "1"] = (
+                int(regs[1]), int(spill[1]) if spill else 0)
+    return out
+
+
+def contact_meta(contacts, iterations, sweeps):
+    """A row plan of `contacts` contacts, each a normal row and its two
+    friction rows, with default bounds."""
+    from nimblephysics_tpu_torch.constraint.lcp import LcpMeta
+
+    rows = np.arange(3 * contacts)
+    isf = rows % 3 > 0
+    return LcpMeta(findex=np.where(isf, rows - rows % 3, -1).astype(np.int32),
+                   is_friction=isf, iterations=iterations, seed_pgs_sweeps=sweeps)
+
+
+def random_lcp(meta, r, B, rng, dev):
+    """A seeded random LCP on meta's rows, rank r, B worlds: F 0.5 N(0, 1),
+    b N(0, 1), mu 0.9 on friction rows, z0 0.1 |N(0, 1)|."""
+    n = meta.n
+    mu = np.where(meta.is_friction[:, None], 0.9, 0.0) * np.ones((1, B))
+    return tuple(_on(dev, x) for x in (
+        0.5 * rng.randn(n, r, B), rng.randn(n, B), mu,
+        0.1 * np.abs(rng.randn(n, B))))
+
+
+def kernel_shapes(label, meta, lcp, sweeps, tol, dev):
+    """The kernel beyond the main path's call: its launch plan and resident
+    warps per SM, its time at WIDE_BATCH worlds (lcp repeated), and on the
+    box-stack LCP against its plain version, with that time. Kernel
+    launches here are not the main path's."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    F, b, mu, z0 = lcp
+    n, r, B = F.shape
+    plan = lcp_cuda.seed_plan(n, r, lcp_cuda.smem_limit(F.device.index))
+    warps = lcp_cuda.resident_warps(plan, sweeps > 0)
+    reps = -(-WIDE_BATCH // B)
+    wide = [x.repeat(*([1] * (x.dim() - 1)), reps)[..., :WIDE_BATCH].contiguous()
+            for x in lcp]
+    wide_ms = cuda_ms(lambda: lcp_cuda.apgd_cuda(meta, *wide, pgs_sweeps=sweeps), 20)
+    box = contact_meta(BOX_CONTACTS, meta.iterations, sweeps)
+    bF, bb, bmu, bz0 = random_lcp(box, BOX_RANK, B, np.random.RandomState(SEED + 3), dev)
+    bplan = lcp_cuda.seed_plan(box.n, BOX_RANK, plan.smem_limit)
+    z_k = lcp_cuda.apgd_cuda(box, bF, bb, bmu, bz0, pgs_sweeps=sweeps)
+    z_p = lcp_cuda.seed_plain(box, bF, 0.0, bb, bmu, bz0)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(z_k).all()), f"{label} box-stack output not finite")
+    box_abs, box_rel = rel_err(z_k, z_p)
+    box_ms = cuda_ms(lambda: lcp_cuda.apgd_cuda(box, bF, bb, bmu, bz0, pgs_sweeps=sweeps), 20)
+    box_bound, _ = apgd_bound_ms(box.n, BOX_RANK, B, box.iterations, sweeps)
+    print(f"{label}: plan at n={n} r={r}: width {plan.rank_width}, "
+          f"{plan.rows_per_lane} rows a lane, "
+          f"{plan.worlds_per_block} worlds x {plan.lanes_per_world} lanes a block, "
+          f"{plan.smem_bytes} bytes of shared memory, {warps} resident warps/SM; "
+          f"{wide_ms:.4f} ms at B={WIDE_BATCH}")
+    print(f"{label}: box-stack LCP n={box.n} r={BOX_RANK} B={B} (width "
+          f"{bplan.rank_width}, {bplan.rows_per_lane} rows a lane, "
+          f"{bplan.worlds_per_block} worlds a block, "
+          f"{bplan.smem_bytes} bytes, {lcp_cuda.resident_warps(bplan, sweeps > 0)} "
+          f"resident warps/SM): vs plain max|dz| {box_abs:.3e}, max|dz|/(1+max|z|) "
+          f"{box_rel:.3e} (tol {tol:g}); {box_ms:.4f} ms, bound {box_bound:.4f} ms")
+    check(box_rel <= tol, f"{label} disagrees with its plain version on the box-stack LCP")
 
 
 def make_engine(dev, solver=None, dtype=torch.float32):
@@ -286,6 +373,7 @@ def phase6(dev, q, v, u, random_lcp):
     print(f"phase 6: K1b {k_ms:.4f} ms, plain (apgd_plain + pgs_plain) "
           f"{p_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) at n={n} r={r} "
           f"B={B}, {meta.iterations} iterations + {sweeps} sweeps")
+    kernel_shapes("phase 6 (K1b)", meta, inputs["engine_lcp"], sweeps, PGS_TOL, dev)
     rng = np.random.RandomState(SEED)
     carry, uu = rollout_start(eng, q0, v0, rng, dev)
     _, launches = timed_rollout(eng, carry, uu, "phase 6 (default config)")
@@ -422,10 +510,12 @@ def main() -> int:
     # 2. Build.
     lib_path, build_s, log = lcp_cuda.build(verbose=True)
     print(f"phase 2: built {lib_path.name} in {build_s:.1f} s")
-    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
-    spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", log))
-    print(f"  ptxas: {len(regs)} instantiations, {min(regs)}-{max(regs)} "
-          f"registers, {spills} bytes spilled")
+    report = ptxas_report(log)
+    check(len(report) == 2 * len(lcp_cuda.INSTANCES),
+          "ptxas did not report every kernel instantiation")
+    for (width, rows, polish), (regs, spill) in sorted(report.items()):
+        print(f"  ptxas: width {width:2d}, {rows} rows a lane, "
+              f"{'K1b' if polish else 'K1 '}: {regs} registers, {spill} bytes spilled")
 
     world, q0, v0, eng = make_engine(dev)
     meta = eng.meta
@@ -443,13 +533,10 @@ def main() -> int:
     prob = eng.lcp_problem(first.q, first.v, u)
     contact_worlds = int((first.impulses.abs().amax(dim=0) > 0).sum())
     check(contact_worlds > 0, "no world in contact for input (a)")
-    mu_r = np.where(meta.is_friction[:, None], 0.9, 0.0) * np.ones((1, BATCH))
     inputs = {
         "engine_lcp": (prob.F, prob.b.contiguous(), prob.mu.contiguous(),
                        first.impulses.contiguous()),
-        "random": tuple(_on(dev, x) for x in (
-            0.5 * rng.randn(nrows, nv, BATCH), rng.randn(nrows, BATCH), mu_r,
-            0.1 * np.abs(rng.randn(nrows, BATCH)))),
+        "random": random_lcp(meta, nv, BATCH, rng, dev),
     }
     short = dataclasses.replace(meta, iterations=meta.iterations - 1)
 
@@ -486,6 +573,7 @@ def main() -> int:
     bound_ms, bound_by = apgd_bound_ms(nrows, nv, BATCH, meta.iterations)
     print(f"phase 3: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}) at n={nrows} r={nv} B={BATCH}")
+    kernel_shapes("phase 3 (K1)", meta, inputs["engine_lcp"], 0, KERNEL_TOL, dev)
 
     # 4. Forward rollout.
     carry, u = rollout_start(eng, q0, v0, rng, dev)

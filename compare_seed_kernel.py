@@ -1,0 +1,155 @@
+#!/usr/bin/env python3
+"""Time the APGD seed kernel against other builds of it on one GPU, in
+turns.
+
+    git show REV:nimblephysics_tpu_torch/csrc/apgd_seed.cu \
+        > __pycache__/apgd_seed_old.cu
+    python3 compare_seed_kernel.py --old __pycache__/apgd_seed_old.cu \
+        [--alt PATH ...] [--batch 4096]
+
+--old names a source with the one-thread-per-world design's C interface
+(apgd_seed_f32(..., cfm, stream), which sizes its own launch and takes
+r <= 16); each --alt a source with this tree's interface (the launch plan
+of lcp_cuda.seed_plan). On chip_smoke.py's engine LCP (half-cheetahs on
+the ground, n = 60, r = 9), for K1 (SolverConfig.throughput()) and K1b
+(the default SolverConfig), every build is first held against the plain
+version (chip_smoke's tolerances), then timed with CUDA events over 50
+launches, in the order old, this tree's, the alternatives, and back.
+Prints one line per timing and, last, a JSON summary. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import chip_smoke  # noqa: E402
+from nimblephysics_tpu_torch.batched import lcp_cuda  # noqa: E402
+
+
+def _args(meta, F, b, mu, z0):
+    isf, fidx, lo, hi = lcp_cuda._static_rows(meta, F.device)
+    z = torch.empty_like(b)
+    ptrs = [x.data_ptr() for x in (F, b, mu, z0, z, isf, fidx, lo, hi)]
+    return z, ptrs
+
+
+def old_launcher(path):
+    """apgd_cuda for a source with the one-thread-per-world interface."""
+    lib = ctypes.CDLL(str(lcp_cuda.build(source=path)[0]))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.apgd_seed_f32.argtypes = [p] * 9 + [i] * 5 + [ctypes.c_float, p]
+    lib.apgd_seed_f32.restype = i
+
+    def run(meta, F, b, mu, z0, pgs_sweeps=0):
+        n, r, B = F.shape
+        z, ptrs = _args(meta, F, b, mu, z0)
+        err = lib.apgd_seed_f32(*ptrs, n, r, B, int(meta.iterations), pgs_sweeps,
+                                0.0, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{path}: launch failed, CUDA error {err}")
+        return z
+    return run
+
+
+def alt_launcher(path):
+    """apgd_cuda for a source with this tree's interface."""
+    lib = ctypes.CDLL(str(lcp_cuda.build(source=path)[0]))
+    p, i, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    lib.apgd_seed_f32.argtypes = [p] * 9 + [i] * 5 + [ctypes.c_float, i, i, i, i, sz, p]
+    lib.apgd_seed_f32.restype = i
+
+    def run(meta, F, b, mu, z0, pgs_sweeps=0):
+        n, r, B = F.shape
+        plan = lcp_cuda.seed_plan(n, r, lcp_cuda.smem_limit(F.device.index))
+        z, ptrs = _args(meta, F, b, mu, z0)
+        err = lib.apgd_seed_f32(*ptrs, n, r, B, int(meta.iterations), pgs_sweeps,
+                                0.0, plan.rank_width, plan.rows_per_lane,
+                                plan.worlds_per_block, plan.world_stride,
+                                plan.smem_bytes,
+                                torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{path}: launch failed, CUDA error {err}")
+        return z
+    return run
+
+
+def engine_lcp(dev, solver, batch):
+    """chip_smoke phase 3's engine LCP (a) under `solver`."""
+    _, q0, _, eng = chip_smoke.make_engine(dev, solver)
+    rng = np.random.RandomState(chip_smoke.SEED)
+    nv, na = eng.world.num_dofs, eng.world.action_size
+    q = np.tile(q0[:, None], (1, batch)) + 0.02 * rng.randn(nv, batch)
+    q[1] -= 0.27
+    v = 0.3 * rng.randn(nv, batch)
+    u = eng.action_to_forces(chip_smoke._on(dev, 0.5 * rng.randn(na, batch)))
+    first = eng.step(chip_smoke._on(dev, q), chip_smoke._on(dev, v), u)
+    prob = eng.lcp_problem(first.q, first.v, u)
+    return eng.meta, (prob.F, prob.b.contiguous(), prob.mu.contiguous(),
+                      first.impulses.contiguous())
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--old", help="source with the one-thread-per-world interface")
+    ap.add_argument("--alt", action="append", default=[],
+                    help="source with this tree's interface (repeatable)")
+    ap.add_argument("--batch", type=int, default=chip_smoke.BATCH)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("compare_seed_kernel: no CUDA device", file=sys.stderr)
+        return 2
+    from nimblephysics_tpu_torch.simulation import SolverConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    sources = [lcp_cuda.SOURCE] + ([args.old] if args.old else []) + args.alt
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc each, together
+        list(pool.map(lambda src: lcp_cuda.build(source=src), sources))
+    builds = {"new": lcp_cuda.apgd_cuda}
+    if args.old:
+        builds["old"] = old_launcher(args.old)
+    for k, path in enumerate(args.alt):
+        builds[f"alt{k}:{Path(path).name}"] = alt_launcher(path)
+    names = list(builds)
+    order = ["old"] * bool(args.old) + [x for x in names if x != "old"]
+    order = order + order[::-1]
+
+    summary = {}
+    for form, solver, tol in (("K1", SolverConfig.throughput(), chip_smoke.KERNEL_TOL),
+                              ("K1b", SolverConfig(), chip_smoke.PGS_TOL)):
+        meta, lcp = engine_lcp(dev, solver, args.batch)
+        sweeps = int(meta.seed_pgs_sweeps)
+        want = lcp_cuda.seed_plain(meta, lcp[0], 0.0, *lcp[1:])
+        for name in names:
+            got = builds[name](meta, *lcp, pgs_sweeps=sweeps)
+            torch.cuda.synchronize()
+            _, rel = chip_smoke.rel_err(got, want)
+            print(f"{form} {name}: vs plain max|dz|/(1+max|z|) {rel:.3e} (tol {tol:g})")
+            chip_smoke.check(rel <= tol, f"{form} {name} disagrees with the plain version")
+        times = {name: [] for name in names}
+        for name in order:
+            ms = chip_smoke.cuda_ms(lambda: builds[name](meta, *lcp, pgs_sweeps=sweeps), 50)
+            times[name].append(ms)
+            print(f"{form} {name}: {ms:.4f} ms at n={meta.n} r={lcp[0].shape[1]} "
+                  f"B={args.batch}, {meta.iterations} iterations + {sweeps} sweeps")
+        summary[form] = times
+    print(json.dumps({"gpu": torch.cuda.get_device_name(0), "batch": args.batch,
+                      "ms": summary}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

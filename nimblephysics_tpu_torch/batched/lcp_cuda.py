@@ -17,11 +17,14 @@ mirrors apgd_seed_tpu there:
 The kernel is compiled with nvcc at first use into csrc/build/ (a shared
 library with a plain C interface, loaded with ctypes). Nothing here is
 built or imported from a GPU toolchain when the module is imported.
+`seed_plan` is its launch plan (padded rank, worlds per block, shared
+memory) against the card's limits, which the library reports.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -46,10 +49,82 @@ from nimblephysics_tpu_torch.constraint.lcp import LcpMeta
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCE = _CSRC / "apgd_seed.cu"
 BUILD_DIR = _CSRC / "build"
+# --split-compile=0 optimizes the instantiations in parallel on every core
+# (7.6 s instead of 18.5 s for the 16 of csrc/apgd_seed.cu on the H100
+# machine's 8 cores, the same registers and spills).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "--split-compile=0",
 )
+# The kernel's instantiations (NT_INSTANCES in csrc/apgd_seed.cu): the
+# rank is padded with zero columns to the first width that holds it, and
+# the rows each lane owns to 2 (F in registers) where n <= 64 and the width
+# is at most 16, else to 8.
+RANK_WIDTHS = (8, 12, 16, 24, 32)
+ROWS_PER_LANE = (2, 8)
+INSTANCES = tuple((w, k) for k in ROWS_PER_LANE for w in RANK_WIDTHS
+                  if k == 8 or w <= 16)
+LANES_PER_WORLD = 32  # a warp per world in the APGD phases
+WORLDS_PER_BLOCK = 8  # eight consecutive worlds: one 32-byte sector a row
+
+
+@dataclasses.dataclass(frozen=True)
+class SeedPlan:
+    """How the kernel runs an LCP of n rows and rank r on a card.
+
+    rank_width: the template width r is padded to, and rows_per_lane the
+    rows a lane owns (0: no instantiation holds the LCP);
+    worlds_per_block: worlds (warps) per block, halved from
+    WORLDS_PER_BLOCK until the block fits; world_stride: floats of one
+    world's shared-memory region (odd, so that the polish's lanes, one per
+    world, fall on distinct banks); smem_bytes: shared memory per block;
+    fits: whether the card (smem_limit bytes a block) takes it, and if
+    not, why.
+    """
+
+    n: int
+    r: int
+    rank_width: int
+    rows_per_lane: int
+    lanes_per_world: int
+    worlds_per_block: int
+    world_stride: int
+    smem_bytes: int
+    smem_limit: int
+    fits: bool
+    why: str = ""
+
+
+@functools.lru_cache(maxsize=64)
+def seed_plan(n: int, r: int, smem_limit: int) -> SeedPlan:
+    """The launch plan of apgd_cuda for F (n, r, B) on a card that lets a
+    block opt into smem_limit bytes of shared memory.
+
+    A world's region holds F as [n][R + 1] (R the padded rank), b, mu, z,
+    the polish's 1 / A_ii (n each) and u (R); the block adds the per-row lo, hi,
+    is_friction and findex (4 n words).
+    """
+    width = next((w for w in RANK_WIDTHS if w >= r), 0)
+    rows = next((k for k in ROWS_PER_LANE
+                 if LANES_PER_WORLD * k >= n and (width, k) in INSTANCES), 0)
+    if not (width and rows):
+        return SeedPlan(n, r, width, rows, LANES_PER_WORLD, 0, 0, 0, smem_limit,
+                        False, f"n={n}, r={r} is beyond the kernel's "
+                        f"instantiations (rank <= {RANK_WIDTHS[-1]}, rows <= "
+                        f"{LANES_PER_WORLD * ROWS_PER_LANE[-1]})")
+    stride = (n * (width + 5) + width) | 1
+    worlds = WORLDS_PER_BLOCK
+    while True:
+        smem = 4 * (4 * n + worlds * stride)
+        if smem <= smem_limit or worlds == 1:
+            break
+        worlds //= 2
+    fits = smem <= smem_limit
+    why = "" if fits else (
+        f"n={n}, r={r} (width {width}) needs {smem} bytes of shared memory "
+        f"for one world, above the card's {smem_limit} per block")
+    return SeedPlan(n, r, width, rows, LANES_PER_WORLD, worlds, stride, smem,
+                    smem_limit, fits, why)
 
 
 def apgd_plain(meta: LcpMeta, F, cfm, b, mu, z0):
@@ -146,29 +221,30 @@ def _nvcc() -> str:
     return path
 
 
-def _library_path() -> Path:
+def _library_path(source: Path) -> Path:
     digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    return BUILD_DIR / f"libapgd_seed_{digest}.so"
+    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
 
 
-def build(verbose: bool = False) -> Tuple[Path, float, str]:
-    """Compile csrc/apgd_seed.cu unless this source is already built.
+def build(verbose: bool = False, source: Path = SOURCE) -> Tuple[Path, float, str]:
+    """Compile `source` (csrc/apgd_seed.cu) unless it is already built.
 
     Returns (library path, seconds spent compiling, compiler output).
     With verbose=True ptxas reports registers, shared memory and spills.
     The library is written under a temporary name and renamed, so
     concurrent builders never load a partial file.
     """
-    out = _library_path()
+    source = Path(source)
+    out = _library_path(source)
     if out.exists() and not verbose:
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, str(SOURCE)]
+           "-o", tmp, str(source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -184,17 +260,33 @@ def build(verbose: bool = False) -> Tuple[Path, float, str]:
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
     lib.apgd_seed_f32.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i,
-                                  ctypes.c_float, p]
+                                  ctypes.c_float, i, i, i, i, z, p]
     lib.apgd_seed_f32.restype = i
-    lib.apgd_seed_smem_bytes.argtypes = [i, i]
-    lib.apgd_seed_smem_bytes.restype = ctypes.c_size_t
     lib.apgd_seed_smem_limit.argtypes = [i]
     lib.apgd_seed_smem_limit.restype = i
-    lib.apgd_seed_max_rank.argtypes = []
-    lib.apgd_seed_max_rank.restype = i
+    lib.apgd_seed_occupancy.argtypes = [i, i, i, i, z]
+    lib.apgd_seed_occupancy.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=8)
+def smem_limit(device_index: int) -> int:
+    """Shared memory one block may opt into on the card, in bytes."""
+    return int(_library().apgd_seed_smem_limit(device_index))
+
+
+def resident_warps(plan: SeedPlan, polish: bool) -> int:
+    """Warps of the kernel resident on one SM at this plan
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the block's
+    warps)."""
+    blocks = _library().apgd_seed_occupancy(
+        plan.rank_width, plan.rows_per_lane, int(polish),
+        plan.worlds_per_block, plan.smem_bytes)
+    if blocks < 0:
+        raise RuntimeError("apgd_seed_occupancy failed")
+    return blocks * plan.worlds_per_block * plan.lanes_per_world // 32
 
 
 @functools.lru_cache(maxsize=16)
@@ -233,26 +325,19 @@ def apgd_cuda(meta: LcpMeta, F, b, mu, z0, cfm: float = 0.0,
             raise ValueError(f"apgd_cuda: {name} must be contiguous")
     if n != meta.n:
         raise ValueError(f"apgd_cuda: F has {n} rows, the plan {meta.n}")
-    lib = _library()
-    if r > lib.apgd_seed_max_rank():
-        raise NotImplementedError(
-            f"apgd_cuda: rank {r} above the kernel's {lib.apgd_seed_max_rank()}"
-        )
-    smem = lib.apgd_seed_smem_bytes(n, r)
-    limit = lib.apgd_seed_smem_limit(F.device.index)
-    if smem > limit:
-        # LCPs of hundreds of rows: a capacity rule for them is ROADMAP
-        # queue 2 (K1 capacity), not a silent fall back to the plain seed.
-        raise NotImplementedError(
-            f"apgd_cuda: n={n}, r={r} needs {smem} bytes of shared memory "
-            f"per block, above the card's {limit}"
-        )
+    plan = seed_plan(n, r, smem_limit(F.device.index))
+    if not plan.fits:
+        # Above the plan's capacity it raises; it never falls back to the
+        # plain seed.
+        raise NotImplementedError(f"apgd_cuda: {plan.why}")
     isf, fidx, lo, hi = _static_rows(meta, F.device)
     z = torch.empty_like(b)
-    err = lib.apgd_seed_f32(
+    err = _library().apgd_seed_f32(
         F.data_ptr(), b.data_ptr(), mu.data_ptr(), z0.data_ptr(), z.data_ptr(),
         isf.data_ptr(), fidx.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         n, r, B, int(meta.iterations), int(pgs_sweeps), float(cfm),
+        plan.rank_width, plan.rows_per_lane, plan.worlds_per_block,
+        plan.world_stride, plan.smem_bytes,
         torch.cuda.current_stream(F.device).cuda_stream,
     )
     if err != 0:

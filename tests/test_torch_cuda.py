@@ -1,7 +1,8 @@
 """Card-only tests of nimblephysics_tpu_torch: the APGD seed kernel, with
 and without its Gauss-Seidel polish (K1 and K1b), against its plain
-PyTorch version in float32 at the main path's shape, and the training
-step's kernel launches and gradients.
+PyTorch version in float32 at the main path's shape and at the box
+stack's (n = 144, r = 18), its refusal beyond its launch plan, and the
+training step's kernel launches and gradients.
 
 They need an NVIDIA GPU and nvcc and skip elsewhere. This file imports
 neither jax nor the JAX package, so that it runs where only PyTorch is
@@ -134,6 +135,59 @@ def test_k1b_kernel_matches_plain(case):
     scale = 1.0 + want.abs().amax(dim=0)
     assert torch.isfinite(got).all()
     assert ((got - want).abs() <= PGS_TOL * scale).all()
+
+
+def _box_stack(dev, sweeps, B=1024):
+    """The box-stack LCP the JAX package names at lcp_pallas.py:207-210:
+    48 contacts of a normal and two friction rows (n = 144), a seeded
+    random F of rank 18."""
+    from nimblephysics_tpu_torch.constraint.lcp import LcpMeta
+
+    rows = np.arange(144)
+    isf = rows % 3 > 0
+    meta = LcpMeta(findex=np.where(isf, rows - rows % 3, -1).astype(np.int32),
+                   is_friction=isf, iterations=32 if sweeps else 24,
+                   seed_pgs_sweeps=sweeps)
+    rng = np.random.RandomState(3)
+    mu = np.where(isf[:, None], 0.9, 0.0) * np.ones((1, B))
+    lcp = [torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
+           for x in (0.5 * rng.randn(144, 18, B), rng.randn(144, B), mu,
+                     0.1 * np.abs(rng.randn(144, B)))]
+    return meta, lcp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweeps", [0, 16], ids=["K1", "K1b"])
+def test_box_stack_lcp_matches_plain(sweeps):
+    """n = 144, r = 18 (rank padded to 24, above the one-thread design's
+    16): the kernel against the plain versions."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    meta, (F, b, mu, z0) = _box_stack(_cuda(), sweeps)
+    got = lcp_cuda.apgd_cuda(meta, F, b, mu, z0, pgs_sweeps=sweeps)
+    want = lcp_cuda.seed_plain(meta, F, 0.0, b, mu, z0)
+    torch.cuda.synchronize()
+    scale = 1.0 + want.abs().amax(dim=0)
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= (PGS_TOL if sweeps else KERNEL_TOL) * scale).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,r", [(2000, 32), (60, 33)])
+def test_wrapper_raises_above_capacity(n, r):
+    """Above the launch plan's capacity the wrapper raises with the
+    numbers; it never falls back to the plain seed."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+    from nimblephysics_tpu_torch.constraint.lcp import LcpMeta
+
+    dev = _cuda()
+    meta = LcpMeta(findex=-np.ones(n, np.int32), is_friction=np.zeros(n, bool))
+    F = torch.zeros(n, r, 4, device=dev)
+    b = torch.zeros(n, 4, device=dev)
+    before = lcp_cuda.apgd_seed.launches
+    with pytest.raises(NotImplementedError, match=str(r)):
+        lcp_cuda.apgd_cuda(meta, F, b, b, b)
+    assert lcp_cuda.apgd_seed.launches == before
 
 
 @pytest.mark.cuda

@@ -1,7 +1,7 @@
 """Boundary rules of nimblephysics_tpu_torch.
 
-* The port (and its scripts chip_smoke.py and profile_torch_step.py)
-  never imports jax or the JAX package
+* The port (and its scripts chip_smoke.py, profile_torch_step.py and
+  compare_seed_kernel.py) never imports jax or the JAX package
   nimblephysics_tpu, checked statically per file and by importing every
   module in a fresh interpreter. The name test is exact: the port's own
   name starts with "nimblephysics_tpu".
@@ -24,7 +24,7 @@ REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "nimblephysics_tpu_torch"
 FILES = sorted(
     str(p.relative_to(REPO)) for p in PORT.rglob("*.py")
-) + ["chip_smoke.py", "profile_torch_step.py"]
+) + ["chip_smoke.py", "profile_torch_step.py", "compare_seed_kernel.py"]
 
 
 def _is_forbidden(module: str) -> bool:
@@ -61,7 +61,7 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, importlib\n"
         f"for m in {sorted(modules)!r}: importlib.import_module(m)\n"
-        "import chip_smoke, profile_torch_step\n"
+        "import chip_smoke, profile_torch_step, compare_seed_kernel\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'nimblephysics_tpu')]\n"
         "from nimblephysics_tpu_torch.batched import lcp_cuda\n"
