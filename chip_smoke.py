@@ -38,14 +38,40 @@ Phases (any failure exits non-zero and prints no result line):
   8. one short training step (64 worlds, horizon 4) on the card against
      the port's float64 CPU path from the same start and weights: the
      cosine and relative error of the policy gradient;
+  9. the kernel on the box-stack path's own LCPs (the default
+     SolverConfig, B = 4096, from a warm state of benchmarks/
+     boxstack_bench.py's start): the 2-box (n = 72, r = 12) and 3-box
+     (n = 144, r = 18) stacks, the 5-box stack's capped LCP (contact_cap
+     48: n = 144, r = 30) and one island of the islands scene (n = 24,
+     r = 6), warm- and cold-started; K1 and K1b against their plain
+     versions, and a planted fault (a dropped contact) that must miss the
+     limits; a seeded random LCP of the same shape against the plain
+     version in float32 and float64; times, bounds, the launch plan,
+     resident warps per SM, registers and spills; and a 10-box stack's
+     capped LCP (n = 288, r = 60), which the kernel must refuse;
+ 10. the box-stack rollouts (boxstack_bench.py's legs: 2 and 3 boxes, 5
+     boxes under contact_cap 48; 4096 worlds, 100 warm-started steps,
+     the default SolverConfig): env-steps/s, K1b launches (one a step),
+     CUDA kernel launches per step, and the stack standing
+     (tests/test_stacks.py's limits); on the 5-box leg the worlds with
+     more penetrating slots than the cap;
+ 11. one 3-box step at 256 worlds from phase 10's final state, card
+     float32 against the CPU's float32 path with the card's seed (every
+     world) and the CPU's float64 path (a share of worlds);
+ 12. the islands scene (3 boxes, box-box pairs filtered off, 3 islands):
+     4096 worlds, 100 steps, three K1b launches a step; one step against
+     the same world solved as one LCP (contact_islands off);
+ 13. a short VJP through remat_step on the 2-box stack (64 worlds x 4
+     steps), card float32 against the CPU's float64 path;
   then a JSON line per kernel and, last, {"ok": true, "device": ...}.
 
 Matmuls run in full float32: TF32 is switched off for matmuls and cuDNN,
 since F = J L^-T and the pinned solves would otherwise keep only ~3
 digits and the stated float32 tolerances would not hold.
 
-`make_engine`, `rollout_start` and `rollout` build the forward path; the
-profiler (profile_torch_step.py) imports them from here.
+`make_engine`, `rollout_start` and `rollout` build the forward path, and
+`make_box_engine`, `box_start` and `islands_world` the box-stack path;
+the profiler (profile_torch_step.py) imports them from here.
 """
 
 from __future__ import annotations
@@ -121,6 +147,41 @@ GRAD_REL = 2e-5
 WIDE_BATCH = 8192
 BOX_CONTACTS = 48
 BOX_RANK = 18
+# The box-stack path: benchmarks/boxstack_bench.py's legs at 4096 worlds,
+# (boxes, contact_cap); the 10- and 20-box legs are beyond the kernel's
+# capacity (n <= 256, r <= 32) and only the refusal is checked.
+BOX_LEGS = ((2, None), (3, None), (5, 48))
+TOO_WIDE_LEG = (10, 96)
+YAW_JITTER = 0.2
+# tests/test_stacks.py's standing limits (200 steps, float64): the top
+# box's height within 8e-3 of its start, every |v| below 5e-2.
+STAND_DZ = 8e-3
+STAND_V = 5e-2
+# Phase 11: one 3-box step from phase 10's final state, card vs the CPU's
+# float32 path with the card's seed, every world: impulses relative to
+# 1 + max|z|, v to 1 + max|v|. Read on the H100 (PERF.md): 1.9e-8 and
+# 1.0e-7; the limits are ~10x. Against the CPU's float64 path: every world
+# within DV_TOL in v and a share of them within BOX_DV_CLOSE; read: the
+# largest |dv| 7.6e-8, so all 256 within 1e-6; the share allows 2 worlds
+# to take another SAT axis or ladder rung there.
+BOX_DZ_SAME = 2e-7
+BOX_DV_SAME = 1e-6
+BOX_DV_CLOSE = 1e-6
+BOX_DV_SHARE = 0.99
+# Phase 12: the islanded step vs the one-LCP step on the card, relative
+# as above. Read on the H100 (PERF.md): q equal, v 5.7e-8, impulses
+# 9.3e-10 (the pinned solves agree; the seeds' step sizes differ); the
+# limits are ~10-20x.
+ISL_DQ = 1e-7
+ISL_DV = 1e-6
+ISL_DZ = 2e-8
+# Phase 13: 2-box VJP through remat_step, card f32 vs CPU f64. Read on
+# the H100 (PERF.md): cosine 1 to 8 digits, |dg|/|g| 1.3e-7; the limits
+# allow ~15x the error.
+VJP_COS = 0.999999
+VJP_REL = 2e-6
+VJP_WORLDS = 64
+VJP_STEPS = 4
 
 
 def check(cond, msg):
@@ -128,9 +189,9 @@ def check(cond, msg):
         raise RuntimeError(f"check failed: {msg}")
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, warmup=3):
     """Mean milliseconds of fn() on the current stream, by CUDA events."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -481,6 +542,391 @@ def phase8(dev):
     check(cos >= GRAD_COS, "card policy gradient points away from the CPU's")
     check(rel <= GRAD_REL, "card policy gradient far from the CPU's")
 
+# -- the box-stack path (phases 9-13) ----------------------------------------
+
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def count_launches(fn):
+    """CUDA kernel launches fn() makes, from torch.profiler's host events."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.name in LAUNCH_CALLS)
+
+
+def make_box_engine(dev, n_boxes, cap=None, dtype=torch.float32):
+    """box_stack(n_boxes) under its default SolverConfig (contact_cap
+    `cap`) and its engine."""
+    from nimblephysics_tpu_torch.batched import BatchedEngine
+    from nimblephysics_tpu_torch.models import box_stack
+
+    world, q0, _ = box_stack(n_boxes)
+    if cap is not None:
+        world.solver = dataclasses.replace(world.solver, contact_cap=cap)
+    return world, q0, BatchedEngine(world, device=dev, dtype=dtype)
+
+
+def islands_world(n_boxes=3):
+    """tests/test_islands.py's scene: box_stack with every box-box pair
+    filtered off, box i at x = i, a hair into the ground; one island a
+    box. Returns (world, q)."""
+    from nimblephysics_tpu_torch.models import box_stack
+
+    world, q, _ = box_stack(n_boxes)
+    for i in range(n_boxes):
+        for j in range(i + 1, n_boxes):
+            world.collision_overrides[(i, j)] = False
+        q[6 * i + 3:6 * i + 6] = (1.0 * i, 0.0, 0.2 * 0.75**i / 2 - 1e-4)
+    return world, q
+
+
+def box_start(eng, q0, rng, dev, worlds=None):
+    """boxstack_bench.py's start: q0 in every world (BATCH unless
+    `worlds`), the top box's yaw jittered uniformly in +-YAW_JITTER, at
+    rest, zero impulses; and zero control. Returns ((q, v, z), u)."""
+    worlds = worlds or BATCH
+    nv = len(q0)
+    q = np.tile(q0[:, None], (1, worlds))
+    q[nv - 4] += rng.uniform(-YAW_JITTER, YAW_JITTER, worlds)
+    zeros = torch.zeros(nv, worlds, dtype=eng.dtype, device=dev)
+    carry = (_on(dev, q).to(eng.dtype), zeros,
+             torch.zeros(eng.num_rows, worlds, dtype=eng.dtype, device=dev))
+    return carry, zeros.clone()
+
+
+def box_cases(dev):
+    """(label, world, q0, engine) of the box-stack legs and the islands
+    scene, float32 on the card."""
+    from nimblephysics_tpu_torch.batched import BatchedEngine
+
+    cases = []
+    for nb, cap in BOX_LEGS:
+        label = f"box{nb}" + (f"_cap{cap}" if cap else "")
+        cases.append((label, *make_box_engine(dev, nb, cap)))
+    world, q = islands_world()
+    cases.append(("islands", world, q, BatchedEngine(world, device=dev)))
+    return cases
+
+
+def phase9(dev, report):
+    """K1 and K1b on each box-stack leg's own LCP (the capped one on the
+    5-box leg, the first island's in the islands scene)."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    out = {}
+    for label, world, q0, eng in box_cases(dev):
+        carry, u = box_start(eng, q0, np.random.RandomState(SEED + 9), dev)
+        q, v, z = rollout(eng, carry, u, 5)  # a warm state
+        prob = eng.lcp_problem(q, v, u)
+        blocks, _ = eng.lcp_blocks(prob, z)
+        meta, F, b, mu, zw = blocks[0]
+        F, b, mu, zw = (x.contiguous() for x in (F, b, mu, zw))
+        n, r, B = F.shape
+        sweeps = meta.seed_pgs_sweeps
+        check(sweeps == 16, f"{label}: not the default config")
+        plan = lcp_cuda.seed_plan(n, r, lcp_cuda.smem_limit(F.device.index))
+        row = {"n": n, "r": r, "B": B}
+        # The rollout's warm start and a cold one (a rollout's first step),
+        # held to the limits. The engine's impulses are ~5e-3, so the limits
+        # (relative to 1 + max|z|) are ~1e-5 and 1e-4 absolute here, and the
+        # warm-started seed has converged: one iteration or sweep fewer
+        # moves it ~1e-9. The planted fault is a dropped contact: the plain
+        # version on the LCP with each world's most loaded contact (its
+        # normal and friction rows) zeroed, as a kernel that skipped a row
+        # would compute. A seeded random LCP on the same rows and rank
+        # (F 0.5 N(0, 1), b N(0, 1)) is shown beside, against the plain
+        # version in float32 and in float64: with rank r in n >> r rows
+        # the polish drifts along A's null space in either precision.
+        errs = {}
+        for start, z0 in (("warm", zw), ("cold", torch.zeros_like(zw))):
+            z1 = lcp_cuda.apgd_cuda(meta, F, b, mu, z0)
+            p1 = lcp_cuda.apgd_plain(meta, F, 0.0, b, mu, z0)
+            z2 = lcp_cuda.apgd_cuda(meta, F, b, mu, z0, pgs_sweeps=sweeps)
+            p2 = lcp_cuda.pgs_plain(meta, F, 0.0, b, mu, p1, sweeps=sweeps)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(z1).all() and torch.isfinite(z2).all()),
+                  f"{label}: kernel output not finite ({start})")
+            errs["k1", start], errs["k1b", start] = rel_err(z1, p1), rel_err(z2, p2)
+            if start == "warm":
+                row["impulse_max"] = float(p2.abs().max())
+                keep = torch.ones_like(zw)
+                k = torch.argmax(p2[0::3], dim=0)  # each world's most loaded contact
+                for i in range(3):
+                    keep.scatter_(0, (3 * k + i)[None], 0.0)
+                Fd, bd = F * keep[:, None], b * keep
+                d1 = lcp_cuda.apgd_plain(meta, Fd, 0.0, bd, mu, z0)
+                d2 = lcp_cuda.seed_plain(meta, Fd, 0.0, bd, mu, z0)
+                faults = (rel_err(z1, d1)[1], rel_err(z2, d2)[1])
+        Fr, br, mur, zr = random_lcp(meta, r, B, np.random.RandomState(SEED + 90), dev)
+        rnd = {}
+        for key, sw in (("k1", 0), ("k1b", sweeps)):
+            zk = lcp_cuda.apgd_cuda(meta, Fr, br, mur, zr, pgs_sweeps=sw)
+            p32, p64 = (lcp_cuda.seed_plain(dataclasses.replace(meta, seed_pgs_sweeps=sw),
+                                            *(x.to(dt) for x in (Fr,)), 0.0,
+                                            *(x.to(dt) for x in (br, mur, zr)))
+                        for dt in (torch.float32, torch.float64))
+            rnd[key] = (rel_err(zk, p32)[1], rel_err(zk.double(), p64)[1],
+                        rel_err(p32.double(), p64)[1])
+        for key, sw, tol in (("k1", 0, KERNEL_TOL), ("k1b", sweeps, PGS_TOL)):
+            ms = cuda_ms(lambda: lcp_cuda.apgd_cuda(meta, F, b, mu, zw, pgs_sweeps=sw), 20)
+            plain = ((lambda: lcp_cuda.seed_plain(meta, F, 0.0, b, mu, zw)) if sw
+                     else (lambda: lcp_cuda.apgd_plain(meta, F, 0.0, b, mu, zw)))
+            plain_ms = cuda_ms(plain, 2 if sw else 5, warmup=1)
+            bound, by = apgd_bound_ms(n, r, B, meta.iterations, sw)
+            regs, spill = report.get((plan.rank_width, plan.rows_per_lane, sw > 0), (-1, -1))
+            warps = lcp_cuda.resident_warps(plan, sw > 0)
+            (wa, wr), (ca, cr) = errs[key, "warm"], errs[key, "cold"]
+            row[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                            max_abs_err=max(wa, ca), rel=max(wr, cr))
+            print(f"phase 9 ({label}, {'K1b' if sw else 'K1 '}): n={n} r={r} B={B}: "
+                  f"vs plain, max|dz| and max|dz|/(1+max|z|): warm start {wa:.3e}, "
+                  f"{wr:.3e}; cold {ca:.3e}, {cr:.3e} (tol {tol:g}); random LCP: "
+                  f"kernel vs plain f32 {rnd[key][0]:.3e}, vs plain f64 {rnd[key][1]:.3e}, "
+                  f"plain f32 vs f64 {rnd[key][2]:.3e}; {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); width "
+                  f"{plan.rank_width}, {plan.rows_per_lane} rows a lane, "
+                  f"{plan.worlds_per_block} worlds a block, {plan.smem_bytes} bytes, "
+                  f"{warps} resident warps/SM, {regs} registers, {spill} bytes spilled")
+            check(max(wr, cr) <= tol,
+                  f"{label}: {'K1b' if sw else 'K1'} disagrees with its plain version")
+        print(f"phase 9 ({label}): planted fault, a dropped contact: K1 {faults[0]:.3e} "
+              f"(> {KERNEL_TOL:g}), K1b {faults[1]:.3e} (> {PGS_TOL:g}); the engine's "
+              f"max|z| {row['impulse_max']:.4e}")
+        check(faults[0] > KERNEL_TOL, f"{label}: the K1 limit cannot tell a dropped contact")
+        check(faults[1] > PGS_TOL, f"{label}: the K1b limit cannot tell a dropped contact")
+        out[label] = row
+
+    # Past the kernel's capacity: the 10-box leg's capped LCP is refused,
+    # with its numbers, and nothing is launched.
+    world, q0, eng = make_box_engine(dev, *TOO_WIDE_LEG)
+    (q, v, z), u = box_start(eng, q0, np.random.RandomState(SEED), dev, worlds=64)
+    before = lcp_cuda.apgd_seed.launches
+    try:
+        eng.step(q, v, u, z_warm=z)
+        msg = ""
+    except NotImplementedError as e:
+        msg = str(e)
+    print(f"phase 9 (box{TOO_WIDE_LEG[0]}_cap{TOO_WIDE_LEG[1]}): n={eng.meta_cap.n} "
+          f"r={world.num_dofs}: {msg or 'NOT REFUSED'}")
+    check(f"n={eng.meta_cap.n}" in msg and f"r={world.num_dofs}" in msg,
+          "the kernel did not refuse the 10-box LCP with its numbers")
+    check(lcp_cuda.apgd_seed.launches == before, "a refused LCP launched the kernel")
+    return out
+
+
+def phase10(dev):
+    """The box-stack legs: 100 warm-started steps at 4096 worlds each."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    out = {}
+    for label, world, q0, eng in box_cases(dev)[:len(BOX_LEGS)]:
+        carry, u = box_start(eng, q0, np.random.RandomState(SEED + 10), dev)
+        torch.cuda.synchronize()
+        lcp_cuda.apgd_seed.launches = 0
+        t0 = time.perf_counter()
+        carry = rollout(eng, carry, u, STEPS)
+        torch.cuda.synchronize()
+        dt_s = time.perf_counter() - t0
+        launches = lcp_cuda.apgd_seed.launches
+        qf, vf, zf = carry
+        check(launches == STEPS, f"{label}: K1b launched {launches} times in {STEPS} steps")
+        check(all(bool(torch.isfinite(x).all()) for x in carry), f"{label}: state not finite")
+        top = len(q0) - 1
+        dz = float((qf[top] - q0[top]).abs().max())
+        vmax = float(vf.abs().max())
+        per_step = count_launches(lambda: eng.step(qf, vf, u, z_warm=zf))
+        extra = ""
+        if eng.contact_cap is not None:
+            d = eng.lcp_problem(qf, vf, u).contact_depths
+            live = eng._contact_valid(d).sum(dim=0)
+            extra = (f"; worlds with more penetrating slots than the cap "
+                     f"({eng.contact_cap}): {int((live > eng.contact_cap).sum())}/{BATCH}, "
+                     f"most {int(live.max())}")
+        print(f"phase 10 ({label}): {STEPS} steps x {BATCH} worlds: "
+              f"{dt_s / STEPS * 1e3:.3f} ms/step, {BATCH * STEPS / dt_s:.1f} env-steps/s; "
+              f"K1b launches {launches}; CUDA kernel launches per step {per_step}; "
+              f"LCP n={eng.num_rows} solved n={(eng.meta_cap or eng.meta).n}; top box "
+              f"max|dz| {dz:.3e} (limit {STAND_DZ:g}), max|v| {vmax:.3e} (limit "
+              f"{STAND_V:g}){extra}")
+        check(dz <= STAND_DZ, f"{label}: the top box moved {dz:.3e} from its start")
+        check(vmax < STAND_V, f"{label}: the stack is moving (max|v| {vmax:.3e})")
+        out[label] = dict(launches=launches, per_step=per_step, world=world, eng=eng,
+                          carry=carry, u=u, env_steps_s=BATCH * STEPS / dt_s)
+    return out
+
+
+def card_vs_cpu(world, state, worlds):
+    """One step of the first `worlds` worlds on the card against the CPU
+    float64 path (the port's own) and the CPU float32 path with the
+    card's seed (the plain seed plus the projected-gradient step the card
+    re-attaches). Returns the comparison's numbers."""
+    from nimblephysics_tpu_torch.batched import BatchedEngine
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    eng, (q, v, z, u) = state[0], (x[:, :worlds].contiguous() for x in state[1:])
+
+    def card_seed_plain(meta, F, b, mu, z0, cfm=0.0, z_kernel=None):
+        return lcp_cuda.pgd_step(meta, F, cfm, b, mu, lcp_cuda.seed_plain(meta, F, cfm, b, mu, z0))
+
+    g = eng.step(q, v, u, z_warm=z)
+    gq, gv = g.q.double().cpu(), g.v.double().cpu()
+    cpu64 = BatchedEngine(world, device="cpu", dtype=torch.float64)
+    a64 = [x.double().cpu() for x in (q, v, u, z)]
+    c64 = cpu64.step(*a64[:3], z_warm=a64[3])
+    with mock.patch.object(lcp_cuda, "apgd_seed", card_seed_plain):
+        c32 = BatchedEngine(world, device="cpu", dtype=torch.float32).step(
+            *(x.cpu() for x in (q, v, u)), z_warm=z.cpu())
+    dv64 = (gv - c64.v).abs().amax(dim=0)
+    dv_cpu = (c32.v.double() - c64.v).abs().amax(dim=0)
+    return dict(
+        dq_rel=float(((gq - c64.q).abs() / (1.0 + c64.q.abs())).max()),
+        dz32=float(((g.impulses.cpu() - c32.impulses).abs().amax(dim=0)
+                    / (1.0 + c32.impulses.abs().amax(dim=0))).max()),
+        dv32=float(((gv - c32.v.double()).abs().amax(dim=0)
+                    / (1.0 + c32.v.double().abs().amax(dim=0))).max()),
+        dv64=dv64, dv_cpu=dv_cpu,
+    )
+
+
+def phase11(dev, legs):
+    """The 3-box leg's final state, one step: card vs CPU."""
+    leg = legs["box3"]
+    qf, vf, zf = leg["carry"]
+    c = card_vs_cpu(leg["world"], (leg["eng"], qf, vf, zf, leg["u"]), CHECK_WORLDS)
+    share = float((c["dv64"] <= BOX_DV_CLOSE).double().mean())
+    print(f"phase 11 (box3): {CHECK_WORLDS} worlds: card vs CPU f32 with the card's "
+          f"seed: max|dz|/(1+max|z|) {c['dz32']:.3e} (bound {BOX_DZ_SAME:g}), "
+          f"max|dv|/(1+max|v|) {c['dv32']:.3e} (bound {BOX_DV_SAME:g}); card vs CPU "
+          f"f64: max|dq|/(1+|q|) {c['dq_rel']:.3e} (bound {DQ_TOL:g}), max|dv| "
+          f"{float(c['dv64'].max()):.3e} (bound {DV_TOL:g}), share with |dv| <= "
+          f"{BOX_DV_CLOSE:g} {share:.4f} (bound {BOX_DV_SHARE:g}); CPU f32 vs CPU f64: "
+          f"{int((c['dv_cpu'] > DV_TOL).sum())} worlds beyond {DV_TOL:g}, max|dv| "
+          f"{float(c['dv_cpu'].max()):.3e}")
+    check(c["dz32"] <= BOX_DZ_SAME, "box3: card impulses disagree with the CPU's float32 path")
+    check(c["dv32"] <= BOX_DV_SAME, "box3: card v disagrees with the CPU's float32 path")
+    check(c["dq_rel"] <= DQ_TOL, "box3: card q disagrees with the CPU f64 path")
+    check(float(c["dv64"].max()) <= DV_TOL, "box3: card v far from the CPU f64 path")
+    check(share >= BOX_DV_SHARE, "box3: too few worlds agree with the CPU f64 path")
+
+
+def phase12(dev):
+    """The islands scene: 100 steps, one seed launch per island per step;
+    one step against the same world as one LCP."""
+    from nimblephysics_tpu_torch.batched import BatchedEngine
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    world, q0 = islands_world()
+    eng = BatchedEngine(world, device=dev)
+    n_islands = len(eng.islands or ())
+    check(n_islands == 3, f"islands scene has {n_islands} islands, not 3")
+    carry, u = box_start(eng, q0, np.random.RandomState(SEED + 12), dev)
+    torch.cuda.synchronize()
+    lcp_cuda.apgd_seed.launches = 0
+    t0 = time.perf_counter()
+    carry = rollout(eng, carry, u, STEPS)
+    torch.cuda.synchronize()
+    dt_s = time.perf_counter() - t0
+    launches = lcp_cuda.apgd_seed.launches
+    qf, vf, zf = carry
+    check(launches == n_islands * STEPS,
+          f"seed launched {launches} times in {STEPS} steps of {n_islands} islands")
+    check(all(bool(torch.isfinite(x).all()) for x in carry), "islands: state not finite")
+    heights = qf[5::6] - torch.as_tensor(q0[5::6], dtype=qf.dtype, device=dev)[:, None]
+    dz, vmax = float(heights.abs().max()), float(vf.abs().max())
+    per_step = count_launches(lambda: eng.step(qf, vf, u, z_warm=zf))
+    solver0 = world.solver
+    world.solver = dataclasses.replace(solver0, contact_islands=False)
+    try:
+        eng_m = BatchedEngine(world, device=dev)
+    finally:
+        world.solver = solver0
+    check(eng_m.islands is None, "contact_islands=False kept the islands")
+    r_i = eng.step(qf, vf, u, z_warm=zf)
+    r_m = eng_m.step(qf, vf, u, z_warm=zf)
+    dq = float(((r_i.q - r_m.q).abs() / (1.0 + r_m.q.abs())).max())
+    dv = float(((r_i.v - r_m.v).abs().amax(dim=0) / (1.0 + r_m.v.abs().amax(dim=0))).max())
+    dz_i = float(((r_i.impulses - r_m.impulses).abs().amax(dim=0)
+                  / (1.0 + r_m.impulses.abs().amax(dim=0))).max())
+    print(f"phase 12 (islands): {n_islands} islands (n={[m.n for _, _, m in eng.islands]}), "
+          f"{STEPS} steps x {BATCH} worlds: {dt_s / STEPS * 1e3:.3f} ms/step, "
+          f"{BATCH * STEPS / dt_s:.1f} env-steps/s; seed launches {launches}; CUDA "
+          f"kernel launches per step {per_step}; box heights max|dz| {dz:.3e}, max|v| "
+          f"{vmax:.3e}; one step vs one LCP: max|dq|/(1+|q|) {dq:.3e}, max|dv|/(1+max|v|) "
+          f"{dv:.3e}, max|dz|/(1+max|z|) {dz_i:.3e} (bounds {ISL_DQ:g}, {ISL_DV:g}, {ISL_DZ:g})")
+    check(dz <= STAND_DZ and vmax < STAND_V, "islands: the boxes do not rest")
+    check(dq <= ISL_DQ and dv <= ISL_DV and dz_i <= ISL_DZ,
+          "islands: the islanded step disagrees with the one-LCP step")
+    return dict(launches=launches, per_step=per_step, env_steps_s=BATCH * STEPS / dt_s)
+
+
+def rest_start(q0, rng, worlds):
+    """The box stack at rest with every contact ~1 mm deep (box i lowered
+    by (i + 1) mm), the top box's yaw jittered, velocities 1e-3 N(0, 1);
+    as numpy."""
+    nv = len(q0)
+    q = np.tile(q0[:, None], (1, worlds))
+    q[5::6] -= 1e-3 * np.arange(1, nv // 6 + 1)[:, None]
+    q[nv - 4] += rng.uniform(-YAW_JITTER, YAW_JITTER, worlds)
+    return q, 1e-3 * rng.randn(nv, worlds)
+
+
+def phase13(dev):
+    """A VJP through VJP_STEPS remat_steps of the 2-box stack, card f32
+    against the CPU's float64 path."""
+    grads = {}
+    for label, d, dtype in (("card", dev, torch.float32), ("cpu", torch.device("cpu"), torch.float64)):
+        world, q0, eng = make_box_engine(d, 2, dtype=dtype)
+        rng = np.random.RandomState(SEED + 13)
+        q, v = rest_start(q0, rng, VJP_WORLDS)
+        wq, wv = (torch.as_tensor(rng.randn(*q.shape), dtype=dtype, device=d) for _ in range(2))
+        x = [torch.as_tensor(a, dtype=dtype, device=d).requires_grad_() for a in (q, v)]
+        u = torch.zeros_like(x[0])
+        qq, vv, z = x[0], x[1], None
+        for _ in range(VJP_STEPS):
+            r = eng.remat_step(qq, vv, u, z_warm=z)
+            qq, vv, z = r.q, r.v, r.impulses
+        g = torch.autograd.grad((wq * qq).sum() + (wv * vv).sum(), x)
+        grads[label] = torch.cat([t.reshape(-1) for t in g]).double().cpu()
+    g, c = grads["card"], grads["cpu"]
+    cos = cosine(g, c)
+    rel = float((g - c).norm() / c.norm())
+    print(f"phase 13: 2-box stack, {VJP_WORLDS} worlds x {VJP_STEPS} remat_steps: VJP "
+          f"card f32 vs CPU f64: cosine {cos:.8f} (bound {VJP_COS:g}), |dg|/|g| "
+          f"{rel:.3e} (bound {VJP_REL:g}), |g| {float(c.norm()):.4e}")
+    check(bool(torch.isfinite(g).all()), "box-stack VJP not finite")
+    check(cos >= VJP_COS, "card box-stack VJP points away from the CPU's")
+    check(rel <= VJP_REL, "card box-stack VJP far from the CPU's")
+
+
+def box_kernel_entries(k9, legs, isl):
+    """The kernels line's entries for K1b on the box-stack path: one per
+    leg (launches from its phase-10 rollout, or phase 12's for the
+    islands) with phase 9's numbers at that leg's LCP."""
+    runs = {label: leg["launches"] for label, leg in legs.items()}
+    runs["islands"] = isl["launches"]
+    out = []
+    for label, launches in runs.items():
+        k = k9[label]["k1b"]
+        out.append({
+            "name": f"apgd_seed_pgs/{label}",
+            "route": "cuda",
+            "source": "nimblephysics_tpu_torch/csrc/apgd_seed.cu",
+            "replaces": "nimblephysics_tpu/batched/lcp_pallas.py:118",
+            "launches": launches,
+            "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"],
+            "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"],
+            "library_ms": None,
+        })
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -632,6 +1078,13 @@ def main() -> int:
     phase7(dev)
     phase8(dev)
 
+    # 9-13. The box-stack path.
+    k9 = phase9(dev, report)
+    legs = phase10(dev)
+    phase11(dev, legs)
+    isl = phase12(dev)
+    phase13(dev)
+
     kernel = {
         "name": "apgd_seed",
         "route": "cuda",
@@ -645,7 +1098,7 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
     }
-    print(json.dumps({"kernels": [kernel, k1b]}))
+    print(json.dumps({"kernels": [kernel, k1b, *box_kernel_entries(k9, legs, isl)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,9 +1,10 @@
 """Batched articulated-body kinematics and dynamics over a flattened world.
 
-Counterpart of nimblephysics_tpu/batched/articulated.py for the joint
-types with a constant motion subspace S on the main path: revolute,
-prismatic and weld. Same trailing-batch layout: q, v (nv, B); body
-rotations (3, 3, B); W (6, nv, B).
+Counterpart of nimblephysics_tpu/batched/articulated.py for revolute,
+prismatic and weld joints (a constant motion subspace S) and ball and
+free joints (rotation coordinates w with R = exp(w), S through the
+right Jacobian of SO(3), exp-map position updates). Same trailing-batch
+layout: q, v (nv, B); body rotations (3, 3, B); W (6, nv, B).
 
 The structural identity is the reference's: the world-frame Jacobian
 column of dof d is Ad(T_w,joint(d)) S_d, the same for every body that
@@ -11,7 +12,9 @@ has d as an ancestor, so one W plus a static (nb, nv) ancestor mask
 replaces all per-body Jacobians. Work that is independent across joints
 (relative transforms, Jacobian columns, the composite inertias and the
 mass-matrix blocks) runs as one batched op over all joints; only the
-tree recursions (world transforms, RNEA) walk the bodies in order.
+tree recursions (world transforms, RNEA) walk the bodies in order. The
+ball and free joints' q-dependent parts (exp maps, Jacobians, S-dot) run
+as one batched op over all of them, their batch flattened into B.
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ from nimblephysics_tpu_torch.batched import linalg as bl
 from nimblephysics_tpu_torch.dynamics import joints as J
 from nimblephysics_tpu_torch.simulation.world import World
 
-SUPPORTED_TYPES = (J.REVOLUTE, J.PRISMATIC, J.WELD)
+SUPPORTED_TYPES = (J.REVOLUTE, J.PRISMATIC, J.WELD, J.BALL, J.FREE)
+# Joint types whose rotation is exp(w) of their first three coordinates.
+_EXP_TYPES = (J.BALL, J.FREE)
 
 
 def _skew_np(a):
@@ -70,7 +75,8 @@ class _JointPlan:
     p_pj: np.ndarray
     R_ci: np.ndarray  # T_cj^-1 rotation
     p_ci: np.ndarray
-    S_const: Optional[np.ndarray]  # (6, nd) = Ad(T_cj) S_joint
+    Ad_cj: np.ndarray  # (6, 6) Ad(T_cj)
+    S_const: Optional[np.ndarray]  # (6, nd) = Ad(T_cj) S_joint, None if S(q)
 
 
 class FlatWorld:
@@ -92,7 +98,7 @@ class FlatWorld:
                     )
                 T_ci = np.linalg.inv(j.T_cj)
                 S_const = None
-                if j.num_dofs:
+                if j.num_dofs and j.joint_type not in _EXP_TYPES:
                     S_local = np.zeros((6, 1))
                     if j.joint_type == J.REVOLUTE:
                         S_local[:3, 0] = j.axes[0]
@@ -109,6 +115,7 @@ class FlatWorld:
                         p_pj=j.T_pj[:3, 3].copy(),
                         R_ci=T_ci[:3, :3].copy(),
                         p_ci=T_ci[:3, 3].copy(),
+                        Ad_cj=_Ad_np(j.T_cj),
                         S_const=S_const,
                     )
                 )
@@ -127,11 +134,13 @@ class FlatWorld:
                 jk = self.joints[k]
                 self.anc[bi, jk.q_index : jk.q_index + jk.num_dofs] = 1.0
                 k = jk.parent
-        # Every supported moving joint has one dof: dof d <-> its body.
+        # The body each dof's joint carries.
         self.body_of_dof = np.zeros(self.nv, dtype=np.int64)
         for bi, jp in enumerate(self.joints):
-            if jp.num_dofs:
-                self.body_of_dof[jp.q_index] = bi
+            self.body_of_dof[jp.q_index : jp.q_index + jp.num_dofs] = bi
+        # Ball and free joints, in body order.
+        self.exp_joints = [bi for bi, jp in enumerate(self.joints)
+                           if jp.spec.joint_type in _EXP_TYPES]
         self._tensors: Dict[Tuple[torch.dtype, torch.device], SimpleNamespace] = {}
 
     def tensors(self, dtype: torch.dtype, device) -> SimpleNamespace:
@@ -161,8 +170,8 @@ class FlatWorld:
                 pri_dof[bi] = jp.q_index
         S_dof = np.zeros((nv, 6))
         for jp in self.joints:
-            if jp.num_dofs:
-                S_dof[jp.q_index] = jp.S_const[:, 0]
+            if jp.S_const is not None:
+                S_dof[jp.q_index : jp.q_index + jp.num_dofs] = jp.S_const.T
         # desc[p, c] = 1 iff body c is p or one of p's descendants.
         desc = np.zeros((nb, nb))
         for c in range(nb):
@@ -171,6 +180,13 @@ class FlatWorld:
                 desc[k, c] = 1.0
                 k = self.joints[k].parent
         mask = self.anc[self.body_of_dof].T > 0  # (nv, nv): a moves body(d)
+        ex = [self.joints[bi] for bi in self.exp_joints]
+        free = [jp.spec.joint_type == J.FREE for jp in ex]
+        # Joint k's column col of its 6x6 [[Jr, 0], [0, exp(-w)]] is row
+        # 6k + col of the joints' stacked columns; a ball joint keeps 3.
+        exp_cols = [6 * k + col for k, jp in enumerate(ex)
+                    for col in range(jp.num_dofs)]
+        exp_dofs = [jp.q_index + col for jp in ex for col in range(jp.num_dofs)]
         return SimpleNamespace(
             R_pj=t(np.stack([jp.R_pj for jp in self.joints]))[..., None],
             p_pj=t(np.stack([jp.p_pj for jp in self.joints]))[..., None],
@@ -191,20 +207,93 @@ class FlatWorld:
             desc=t(desc),
             body_of_dof=torch.as_tensor(self.body_of_dof, device=device),
             mass_mask=torch.as_tensor(mask, device=device),
+            # Ball and free joints: body indices, the q rows of their
+            # rotation (k, 3) and translation (k, 3; the zero row nv of a
+            # padded q for a ball joint), Ad(T_cj) (k, 6, 6, 1) and where
+            # their S columns go.
+            exp_bodies=torch.as_tensor(self.exp_joints, dtype=torch.int64,
+                                       device=device),
+            exp_rot=torch.as_tensor(
+                [[jp.q_index + i for i in range(3)] for jp in ex],
+                dtype=torch.int64, device=device).reshape(-1, 3),
+            exp_trans=torch.as_tensor(
+                [[jp.q_index + 3 + i if f else nv for i in range(3)]
+                 for jp, f in zip(ex, free)],
+                dtype=torch.int64, device=device).reshape(-1, 3),
+            exp_Ad=t(np.stack([jp.Ad_cj for jp in ex]) if ex
+                     else np.zeros((0, 6, 6)))[..., None],
+            exp_cols=torch.as_tensor(exp_cols, dtype=torch.int64, device=device),
+            exp_dofs=torch.as_tensor(exp_dofs, dtype=torch.int64, device=device),
         )
+
+
+def _flat(x):
+    """(k, 3, B) -> (3, k B): the joints' batch flattened into B."""
+    return x.permute(1, 0, 2).reshape(3, -1)
+
+
+def _unflat(x, k):
+    """(..., k B) -> (k, ..., B)."""
+    return x.reshape(*x.shape[:-1], k, -1).movedim(-2, 0)
+
+
+def _pad(x):
+    """x (n, B) with a zero row n appended (the index of absent entries)."""
+    return torch.cat([x, x.new_zeros(1, x.shape[-1])], dim=0)
+
+
+def _exp_S(c, q):
+    """Ad(T_cj) [[Jr(w), 0], [0, exp(-w)]] of every ball and free joint,
+    (k, 6, 6, B); a ball joint's S is its first three columns."""
+    k = len(c.exp_bodies)
+    w = _flat(q[c.exp_rot])
+    Jr = bl.so3_right_jacobian_b(w)
+    z = torch.zeros_like(Jr)
+    Sj = torch.cat([torch.cat([Jr, z], dim=1),
+                    torch.cat([z, bl.exp_so3(-w)], dim=1)], dim=0)
+    return torch.einsum("kijb,kjlb->kilb", c.exp_Ad, _unflat(Sj, k))
+
+
+def _exp_S_dot_dq(c, q, v):
+    """(d/dt S(q)) dq of every ball and free joint along dq = v, (k, 6, B):
+    the JAX package's jvp of q -> S(q) dq, in closed form.
+
+    With K = [w]x, t = |w|, s = w . dw and the coefficients of
+    linalg._so3_coeffs, d/de Jr(w + e dw) dw = -(b'/t) s (w x dw)
+    + (c'/t) s w x (w x dw) + c dw x (w x dw), and for a free joint's
+    translation rate dp, d/de exp(-(w + e dw)) dp = -(a'/t) s (w x dp)
+    - a (dw x dp) + (b'/t) s w x (w x dp) + b (dw x (w x dp) + w x (dw x dp)).
+    """
+    k = len(c.exp_bodies)
+    w, d = _flat(q[c.exp_rot]), _flat(v[c.exp_rot])
+    x = _flat(_pad(v)[c.exp_trans])  # zero for a ball joint
+    a, b, cc, da, db, dc = bl.so3_coeff_rates(w)
+    s = bl.dot(w, d)
+    wd = bl.cross(w, d)
+    top = -db * s * wd + dc * s * bl.cross(w, wd) + cc * bl.cross(d, wd)
+    wx, dx = bl.cross(w, x), bl.cross(d, x)
+    bot = (-da * s * wx - a * dx + db * s * bl.cross(w, wx)
+           + b * (bl.cross(d, wx) + bl.cross(w, dx)))
+    sd = _unflat(torch.cat([top, bot]), k)  # (k, 6, B)
+    return torch.einsum("kijb,kjb->kib", c.exp_Ad, sd)
 
 
 def _rel_transforms(c, q):
     """T_pj Q(q) T_cj^-1 for every joint at once: (nb, 3, 3, B), (nb, 3, B).
 
     Q is the Rodrigues rotation about a static axis for revolute joints
-    (I + sin(t) K + (1 - cos(t)) K^2, with K = 0 elsewhere) and a
-    translation along a static axis for prismatic ones.
+    (I + sin(t) K + (1 - cos(t)) K^2, with K = 0 elsewhere), a
+    translation along a static axis for prismatic ones, and (exp(w), 0)
+    or (exp(w), p) for ball and free joints with q = (w[, p]).
     """
-    q_pad = torch.cat([q, q.new_zeros(1, q.shape[-1])], dim=0)
+    q_pad = _pad(q)
     theta = q_pad[c.rev_dof][:, None, None, :]  # (nb, 1, 1, B)
     Rq = c.eye3 + c.K * torch.sin(theta) + c.K2 * (1.0 - torch.cos(theta))
     pq = c.axis_p * q_pad[c.pri_dof][:, None, :]  # (nb, 3, B)
+    if len(c.exp_bodies):
+        R_exp = _unflat(bl.exp_so3(_flat(q[c.exp_rot])), len(c.exp_bodies))
+        Rq = Rq.index_copy(0, c.exp_bodies, R_exp)
+        pq = pq.index_copy(0, c.exp_bodies, q_pad[c.exp_trans])
     R1 = torch.einsum("nijb,njkb->nikb", Rq, c.R_ci)
     p1 = torch.einsum("nijb,njb->nib", Rq, c.p_ci) + pq
     R = torch.einsum("nijb,njkb->nikb", c.R_pj, R1)
@@ -216,7 +305,8 @@ def fk(fw: FlatWorld, q):
     """FK + world Jacobian columns.
 
     Returns (R_wb list[(3,3,B)], p_wb list[(3,B)], W (6, nv, B), S_list
-    (child-frame relative Jacobians, (6, nd, 1) or None), rels
+    (child-frame relative Jacobians: (6, nd, 1) where S is constant,
+    (6, nd, B) for ball and free joints, None without dofs), rels
     list[(R, p)]) as the JAX package's fk does.
     """
     c = fw.tensors(q.dtype, q.device)
@@ -232,11 +322,19 @@ def fk(fw: FlatWorld, q):
             R_wb.append(bl.mm(Rp, Rr[bi]))
             p_wb.append(bl.mv(Rp, pr[bi]) + pp)
     rels = [(Rr[bi], pr[bi]) for bi in range(fw.nb)]
+    S = c.S_dof  # (nv, 6, 1)
+    S_list = c.S
+    if len(c.exp_bodies):
+        cols = _exp_S(c, q).permute(0, 2, 1, 3).reshape(-1, 6, q.shape[-1])
+        S = S.expand(-1, -1, q.shape[-1]).index_copy(0, c.exp_dofs, cols[c.exp_cols])
+        S_list = list(S_list)
+        for bi in fw.exp_joints:
+            jp = fw.joints[bi]
+            S_list[bi] = S[jp.q_index : jp.q_index + jp.num_dofs].permute(1, 0, 2)
     if fw.nv:
         bod = fw.body_of_dof
         Rd = torch.stack([R_wb[b] for b in bod])  # (nv, 3, 3, B)
         pd = torch.stack([p_wb[b] for b in bod])  # (nv, 3, B)
-        S = c.S_dof
         ang = torch.einsum("dijb,djb->dib", Rd, S[:, :3])
         lin = torch.cross(pd, ang, dim=1) + torch.einsum(
             "dijb,djb->dib", Rd, S[:, 3:]
@@ -244,7 +342,7 @@ def fk(fw: FlatWorld, q):
         W = torch.cat([ang, lin], dim=1).permute(1, 0, 2)  # (6, nv, B)
     else:
         W = q.new_zeros(6, 0, q.shape[-1])
-    return R_wb, p_wb, W, c.S, rels
+    return R_wb, p_wb, W, S_list, rels
 
 
 def _adinv_twist(R, p, V):
@@ -264,11 +362,15 @@ def bias_forces(fw: FlatWorld, q, v, rels, S_list):
     """C(q, v) including the world's gravity by batched RNEA at zero
     acceleration.
 
-    For constant-S joints the S-dot term is zero. Body-frame spatial
-    recursion as in dynamics/skeleton.bias_forces of the JAX package.
+    The S-dot term is zero for constant-S joints and _exp_S_dot_dq for
+    ball and free ones. Body-frame spatial recursion as in
+    dynamics/skeleton.bias_forces of the JAX package.
     """
     c = fw.tensors(q.dtype, q.device)
     B = q.shape[-1]
+    sdot = {}
+    if len(c.exp_bodies):
+        sdot = dict(zip(fw.exp_joints, _exp_S_dot_dq(c, q, v)))
     V: List = [None] * fw.nb
     A: List = [None] * fw.nb
     for bi, jp in enumerate(fw.joints):
@@ -285,6 +387,8 @@ def bias_forces(fw: FlatWorld, q, v, rels, S_list):
             sj = bl.mv(S_list[bi], dqj)
             Vi = Vi + sj
             Ai = Ai + bl.ad_apply(Vi, sj)
+            if bi in sdot:
+                Ai = Ai + sdot[bi]
         V[bi], A[bi] = Vi, Ai
     F: List = [None] * fw.nb
     tau = q.new_zeros(fw.nv, B)
@@ -346,5 +450,19 @@ def mass_matrix_blocks(fw: FlatWorld, R_wb, p_wb, W):
 
 
 def integrate_positions(fw: FlatWorld, q, v, dt):
-    """Explicit position integration; every supported type is Euclidean."""
-    return q + v * dt
+    """Explicit position integration: q + v dt, and for ball and free
+    joints the exp-map update R' = exp(w) exp(Jr(w) dw dt), w' = log(R'),
+    p' = p + exp(w) exp(-w) dp dt (the JAX package's per-type rule)."""
+    out = q + v * dt
+    c = fw.tensors(q.dtype, q.device)
+    k = len(c.exp_bodies)
+    if not k:
+        return out
+    w, dw = _flat(q[c.exp_rot]), _flat(v[c.exp_rot])
+    p, dp = _flat(_pad(q)[c.exp_trans]), _flat(_pad(v)[c.exp_trans])
+    Jr = bl.so3_right_jacobian_b(w)
+    Rq = bl.exp_so3(w)
+    Rn = bl.mm(Rq, bl.exp_so3(bl.mv(Jr, dw) * dt))
+    pn = p + bl.mv(Rq, bl.mv(bl.exp_so3(-w), dp) * dt)
+    new = _unflat(torch.cat([bl.log_so3(Rn), pn]), k)  # (k, 6, B)
+    return out.index_copy(0, c.exp_dofs, new.reshape(6 * k, -1)[c.exp_cols])

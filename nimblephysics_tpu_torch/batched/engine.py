@@ -10,6 +10,12 @@ autograd and stop where the JAX package's do (batched/lcp.py);
 `remat_step` is the same step with the backward recompute of
 jax.checkpoint(step, policy=LCP_REMAT_POLICY).
 
+The LCP is solved as the JAX package's step solves it: one boxed LCP per
+static constraint island when the world splits into several
+(SolverConfig.contact_islands), else, under SolverConfig.contact_cap, one
+on the `cap` deepest contact slots of each world (with the rows that are
+not contacts), else one on every row.
+
 Device rule: the engine runs on the card unless the caller asks for the
 CPU. BatchedEngine(world) with no device means "cuda" and raises where
 there is no GPU; it never carries on on the CPU quietly.
@@ -17,8 +23,9 @@ there is no GPU; it never carries on on the CPU quietly.
 
 from __future__ import annotations
 
+import dataclasses
 from types import SimpleNamespace
-from typing import List, NamedTuple, Optional, Set
+from typing import List, NamedTuple, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -32,9 +39,10 @@ from nimblephysics_tpu_torch.batched.articulated import (
     mass_matrix_blocks,
 )
 from nimblephysics_tpu_torch.batched.collision import BatchedCollider
-from nimblephysics_tpu_torch.batched.lcp import boxed_lcp_b
+from nimblephysics_tpu_torch.batched.lcp import LcpSaved, boxed_lcp_b
 from nimblephysics_tpu_torch.collision.collider import Collider
 from nimblephysics_tpu_torch.constraint.assembly import ConstraintAssembler
+from nimblephysics_tpu_torch.constraint.lcp import LcpMeta, subset_meta
 from nimblephysics_tpu_torch.simulation.world import World
 
 
@@ -91,6 +99,15 @@ class LcpProblem(NamedTuple):
     contact_depths: torch.Tensor
 
 
+class StepSaved(NamedTuple):
+    """What a step decided without gradients, for its replay: the LcpSaved
+    of each LCP it solved (one per island, or one) and, under the contact
+    cap, the rows it gathered."""
+
+    lcps: Tuple[LcpSaved, ...]
+    rows_idx: Optional[torch.Tensor] = None  # (3 cap, B) capped contact rows
+
+
 def _tangent_basis_b(n):
     """ODE tangent basis (parity: assembly.tangent_basis): n (..., 3, K)
     unit normals -> (t1, t2), each (..., 3, K)."""
@@ -144,17 +161,24 @@ class BatchedEngine:
                 "batched engine (ROADMAP queue 1 item 9)"
             )
         self.skel_slices = world.dof_slices()
-        if world.solver.contact_islands and self._build_islands() is not None:
-            raise NotImplementedError(
-                "worlds of two or more constraint islands come with the rest "
-                "of the batched engine (ROADMAP queue 1 item 9)"
-            )
+        # Static constraint islands (None: one island, or islands off).
+        self.islands = (
+            self._build_islands() if world.solver.contact_islands else None
+        )
+        self._island_idx = [
+            (torch.as_tensor(rows, device=self.device),
+             torch.as_tensor(dofs, device=self.device))
+            for rows, dofs, _ in self.islands or ()
+        ]
+        # The contact cap applies to a one-island world with more contact
+        # slots than the cap, as in the JAX package.
         cap = world.solver.contact_cap
-        if cap is not None and self.bcollider.num_contacts > cap:
-            raise NotImplementedError(
-                "SolverConfig.contact_cap comes with the rest of the batched "
-                "engine (ROADMAP queue 1 item 9)"
-            )
+        self.contact_cap = None
+        self.meta_cap = None
+        if (cap is not None and self.islands is None
+                and self.bcollider.num_contacts > cap):
+            self.contact_cap = int(cap)
+            self.meta_cap = self._build_cap_meta(self.contact_cap)
         nv = world.num_dofs
 
         def per_dof(getter):
@@ -205,12 +229,36 @@ class BatchedEngine:
             ),
         )
 
+    def _build_cap_meta(self, cap: int) -> LcpMeta:
+        """The row plan of the capped LCP: [3 cap contact rows][every
+        non-contact row]. Every contact slot has the same plan ([normal,
+        friction, friction], findex to its normal, bounds [0, inf)), so
+        which slots each world gathers leaves the plan static."""
+        meta = self.meta
+        C3 = 3 * self.bcollider.num_contacts
+        n_sel = 3 * cap + meta.n - C3
+        findex = np.full(n_sel, -1, dtype=np.int32)
+        findex[1 : 3 * cap : 3] = findex[2 : 3 * cap : 3] = np.arange(0, 3 * cap, 3)
+        lo = hi = None
+        if meta.lo_const is not None:
+            lo = np.concatenate([np.zeros(3 * cap), meta.lo_const[C3:]])
+            hi = np.concatenate([np.full(3 * cap, np.inf), meta.hi_const[C3:]])
+        return dataclasses.replace(
+            meta,
+            findex=findex,
+            is_friction=findex >= 0,
+            lo_const=lo,
+            hi_const=hi,
+            k_active=min(n_sel, max(16, 2 * self.world.num_dofs + 8)),
+        )
+
     def _build_islands(self):
-        """Partition LCP rows into static constraint islands (connected
+        """Partition LCP rows into static constraint islands: connected
         components over dynamic skeletons of every potential constraint
-        row; static skeletons never merge components). Returns None for
-        one island, else the components' row lists. The port runs only
-        the one-island case."""
+        row (static skeletons never merge components). Returns None for
+        one island, else [(rows, dofs, LcpMeta)] per island, in the order
+        of each island's first row; rows that touch no dynamic skeleton
+        ride in the first island."""
         w = self.world
         slices = self.skel_slices
         skel_of_dof = np.full(w.num_dofs, -1, dtype=np.int64)
@@ -257,10 +305,20 @@ class BatchedEngine:
         for i, ss in enumerate(row_skels):
             key = find(next(iter(ss))) if ss else None
             comp_rows.setdefault(key, []).append(i)
-        comp_rows.pop(None, None)  # degenerate rows ride with an island
+        dead = comp_rows.pop(None, [])
         if len(comp_rows) < 2:
             return None
-        return [comp_rows[k] for k in sorted(comp_rows, key=lambda k: comp_rows[k][0])]
+        keys = sorted(comp_rows, key=lambda k: comp_rows[k][0])
+        comp_rows[keys[0]] += dead
+        islands = []
+        for k in keys:
+            rows = np.asarray(sorted(comp_rows[k]), dtype=np.int64)
+            dofs = np.concatenate([
+                np.arange(s, e) for si, (s, e) in enumerate(slices)
+                if find(si) == k and e > s
+            ])
+            islands.append((rows, dofs, subset_meta(self.meta, rows, len(dofs))))
+        return islands
 
     @property
     def num_rows(self) -> int:
@@ -301,7 +359,7 @@ class BatchedEngine:
         Jc = torch.einsum("ckib,idb->ckdb", g, W) * c.dmask
         Jc = Jc.reshape(3 * C, -1, B)
 
-        valid_c = (cdepth > 0.0) & (cdepth <= cfg.contact_clipping_depth)
+        valid_c = self._contact_valid(cdepth)
         b0 = -torch.sum(Jc * v_pre[None, :, :], dim=1)  # (3C, B)
         b_n = b0[0::3]
         rest = c.restitution
@@ -406,10 +464,88 @@ class BatchedEngine:
         self._check("z_warm", z_warm, self.num_rows)
         return z_warm
 
-    def _finish(self, q, v, prob: LcpProblem, z) -> BatchedStepResult:
-        """The impulse velocity update and the position integration."""
+    def _contact_valid(self, cdepth):
+        """Contact slots whose rows are live: 0 < depth <= the clipping
+        depth, (C, B) bool."""
+        return (cdepth > 0.0) & (cdepth <= self.world.solver.contact_clipping_depth)
+
+    def _cap_rows(self, cdepth):
+        """The capped LCP's contact rows, (3 cap, B): per world the `cap`
+        slots of highest score (the depth of a live slot, else -1; ties to
+        the lower slot, as jax.lax.top_k breaks them), in slot order,
+        three rows each."""
+        score = torch.where(self._contact_valid(cdepth), cdepth,
+                            torch.full_like(cdepth, -1.0))
+        order = torch.sort(score.T, dim=1, descending=True, stable=True).indices
+        slots = torch.sort(order[:, : self.contact_cap], dim=1).values  # (B, cap)
+        three = torch.arange(3, device=cdepth.device)
+        return (3 * slots[:, :, None] + three).reshape(slots.shape[0], -1).T.contiguous()
+
+    def lcp_blocks(self, prob: LcpProblem, z_warm, rows_idx=None):
+        """The boxed LCPs one step solves, [(meta, F, b, mu, z_warm)]: one
+        per island, the capped one, or the whole one; and the capped rows
+        (3 cap, B), else None. rows_idx: the capped rows of an earlier call
+        on the same problem (a replay gathers them again, no top-k)."""
+        F, b, mu = prob.F, prob.b, prob.mu
+        if self.islands is not None:
+            return [
+                (meta, F.index_select(0, rows).index_select(1, dofs),
+                 b[rows], mu[rows], z_warm[rows])
+                for (rows, dofs), (_, _, meta) in zip(self._island_idx, self.islands)
+            ], None
+        if self.contact_cap is None:
+            return [(self.meta, F, b, mu, z_warm)], None
+        C3 = 3 * self.bcollider.num_contacts
+        if rows_idx is None:
+            with torch.no_grad():
+                rows_idx = self._cap_rows(prob.contact_depths)
+
+        def take(X):
+            idx = rows_idx.view(rows_idx.shape[0], *([1] * (X.dim() - 2)), -1)
+            idx = idx.expand(rows_idx.shape[0], *X.shape[1:])
+            return torch.cat([torch.gather(X[:C3], 0, idx), X[C3:]])
+
+        return [(self.meta_cap, take(F), take(b), take(mu), take(z_warm))], rows_idx
+
+    def _solve(self, prob: LcpProblem, z_warm, opts, saved: Optional[StepSaved] = None):
+        """The step's impulses z (n, B), u = F^T z (nv, B) and its
+        StepSaved; with `saved`, the replay of that solve."""
+        blocks, rows_idx = self.lcp_blocks(
+            prob, z_warm, None if saved is None else saved.rows_idx)
+        zs, lcps = [], []
+        for k, (meta, F, b, mu, zw) in enumerate(blocks):
+            z_k, s_k = boxed_lcp_b(meta, F, b, mu, zw, return_saved=True,
+                                   saved=None if saved is None else saved.lcps[k],
+                                   **opts)
+            zs.append(z_k)
+            lcps.append(s_k)
+        n, B = prob.b.shape
+        if self.islands is not None:
+            # Rows of different islands have disjoint column support in F
+            # (their skeletons share no dof), so the solves decouple.
+            z = prob.b.new_zeros(n, B)
+            u = prob.b.new_zeros(self.world.num_dofs, B)
+            for (rows, dofs), blk, z_k in zip(self._island_idx, blocks, zs):
+                z.index_copy_(0, rows, z_k)
+                u.index_add_(0, dofs, torch.sum(blk[1] * z_k[:, None, :], dim=0))
+        elif rows_idx is not None:
+            # Unselected slots get no impulse this step: exact whenever a
+            # world has at most `cap` penetrating slots.
+            z_sel, F_sel = zs[0], blocks[0][1]
+            u = torch.sum(F_sel * z_sel[:, None, :], dim=0)
+            C3, k3 = 3 * self.bcollider.num_contacts, rows_idx.shape[0]
+            z = torch.cat([prob.b.new_zeros(C3, B).scatter(0, rows_idx, z_sel[:k3]),
+                           z_sel[k3:]])
+        else:
+            z, u = zs[0], None  # u = F^T z in _finish
+        return z, u, StepSaved(tuple(lcps), rows_idx)
+
+    def _finish(self, q, v, prob: LcpProblem, z, u=None) -> BatchedStepResult:
+        """The impulse velocity update (u = F^T z unless given) and the
+        position integration."""
         w = self.world
-        u = torch.sum(prob.F * z[:, None, :], dim=0)  # (nv, B)
+        if u is None:
+            u = torch.sum(prob.F * z[:, None, :], dim=0)
         v_next = prob.v_pre + bl.block_solve_tri_upper_t_vec(
             prob.Ls, self.skel_slices, u
         )
@@ -446,11 +582,9 @@ class BatchedEngine:
             )
         z_warm = self._inputs(q, v, control, z_warm)
         prob = self.lcp_problem(q, v, control)
-        z = boxed_lcp_b(
-            self.meta, prob.F, prob.b, prob.mu, z_warm,
-            **self._lcp_options(fallback_cfm, fallback_gradients, ladder_mode),
-        )
-        return self._finish(q, v, prob, z)
+        opts = self._lcp_options(fallback_cfm, fallback_gradients, ladder_mode)
+        z, u, _ = self._solve(prob, z_warm, opts)
+        return self._finish(q, v, prob, z, u)
 
     def remat_step(
         self,
@@ -463,28 +597,26 @@ class BatchedEngine:
         ladder_mode: Optional[str] = None,
     ) -> BatchedStepResult:
         """`step` with its values and gradients, keeping for the backward
-        only the step's inputs and the LCP's LcpSaved (a few (n, B)
-        tensors), as jax.checkpoint(step, policy=LCP_REMAT_POLICY) does.
+        only the step's inputs and its StepSaved (a few (n, B) tensors per
+        LCP, and the capped rows), as
+        jax.checkpoint(step, policy=LCP_REMAT_POLICY) does.
 
         The step runs once without a graph; its backward recomputes the
         smooth dynamics, collision, rows and F, and replays the pinned
-        solve on the saved masks. The seed (the kernel on the card), the
-        refine rounds and the ladder never run again.
+        solve(s) on the saved masks (and the saved capped rows). The seed
+        (the kernel on the card), the refine rounds, the ladder and the
+        contact cap's top-k never run again.
         """
         z_warm = self._inputs(q, v, control, z_warm)
         opts = self._lcp_options(fallback_cfm, fallback_gradients, ladder_mode)
-        saved = []  # the forward's LcpSaved, read by the recompute
+        saved = []  # the forward's StepSaved, read by the recompute
 
         def replay(q, v, control, z_warm):
             prob = self.lcp_problem(q, v, control)
-            if saved:
-                z = boxed_lcp_b(self.meta, prob.F, prob.b, prob.mu, z_warm,
-                                saved=saved[0], **opts)
-            else:
-                z, s = boxed_lcp_b(self.meta, prob.F, prob.b, prob.mu, z_warm,
-                                   return_saved=True, **opts)
+            z, u, s = self._solve(prob, z_warm, opts, saved[0] if saved else None)
+            if not saved:
                 saved.append(s)
-            return self._finish(q, v, prob, z)
+            return self._finish(q, v, prob, z, u)
 
         return BatchedStepResult(*_Recompute.apply(replay, q, v, control, z_warm))
 

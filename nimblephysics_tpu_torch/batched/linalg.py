@@ -32,8 +32,14 @@ def mm(A, B):
     return torch.sum(A[:, :, None, :] * B[None, :, :, :], dim=1)
 
 
+def mtm(A, B):
+    """A^T B: (k, m, B-or-1), (k, n, B-or-1) -> (m, n, B)."""
+    return torch.sum(A[:, :, None, :] * B[:, None, :, :], dim=0)
 
 
+def dot(a, b):
+    """(k, B) . (k, B) -> (B,)."""
+    return torch.sum(a * b, dim=0)
 
 
 def cross(a, b):
@@ -45,12 +51,6 @@ def cross(a, b):
             a[0] * b[1] - a[1] * b[0],
         ]
     )
-
-
-
-
-
-
 
 
 def gram(U, V):
@@ -68,6 +68,108 @@ def skew(w):
             torch.stack([-w[1], w[0], z]),
         ]
     )
+
+
+def _eye3(w):
+    return torch.eye(3, dtype=w.dtype, device=w.device)[..., None]
+
+
+def _taylor_thresh(dtype) -> float:
+    """theta^2 below which the rotation maps take their Taylor branches:
+    the dtype's machine epsilon. Large enough that the generic branch's
+    derivatives never see theta^4 underflow to subnormals (float32
+    theta ~ 1e-11 gives theta^4 ~ 1e-44, then inf * 0 = NaN through
+    (1 - cos t)/t^2), small enough that the Taylor error O(t2^2) stays
+    below eps^2."""
+    return float(torch.finfo(dtype).eps)
+
+
+def _so3_coeffs(w):
+    """a = sin t / t, b = (1 - cos t)/t^2 and c = (t - sin t)/t^3 of
+    t = |w| for w (3, B), each (B,) with its Taylor branch below
+    _taylor_thresh, then the branch mask, t^2, the guarded t^2 and the
+    guarded t. Every guard is a double where: the generic branch sees
+    theta^2 = 1 where it is not taken, since torch.where, like jnp.where,
+    multiplies the unused branch's gradient by zero and 0 * inf is NaN."""
+    t2 = torch.sum(w * w, dim=0)
+    small = t2 < _taylor_thresh(w.dtype)
+    t2s = torch.where(small, torch.ones_like(t2), t2)
+    t = torch.sqrt(t2s)
+    s = torch.sin(t)
+    a = torch.where(small, 1.0 - t2 / 6.0, s / t)
+    b = torch.where(small, 0.5 - t2 / 24.0, (1.0 - torch.cos(t)) / t2s)
+    c = torch.where(small, 1.0 / 6.0 - t2 / 120.0, (t - s) / (t2s * t))
+    return a, b, c, small, t2, t2s, t
+
+
+def exp_so3(w):
+    """Batched exp map (3, B) -> (3, 3, B), gradient-safe at |w| -> 0:
+    I + a [w]x + b [w]x^2."""
+    a, b, *_ = _so3_coeffs(w)
+    K = skew(w)
+    return _eye3(w) + a * K + b * mm(K, K)
+
+
+def so3_right_jacobian_b(w):
+    """Batched right Jacobian of SO(3), (3, B) -> (3, 3, B):
+    Jr(w) = I - (1 - cos t)/t^2 [w]x + (t - sin t)/t^3 [w]x^2."""
+    _, b, c, *_ = _so3_coeffs(w)
+    K = skew(w)
+    return _eye3(w) - b * K + c * mm(K, K)
+
+
+def so3_coeff_rates(w):
+    """(a, b, c) of _so3_coeffs and their radial rates over t, a'(t)/t,
+    b'(t)/t and c'(t)/t, each (B,), Taylor-guarded the same way. Along a
+    direction d, d/de a(|w + e d|) = (a'(t)/t) (w . d)."""
+    a, b, c, small, t2, t2s, t = _so3_coeffs(w)
+    s, co = torch.sin(t), torch.cos(t)
+    t4 = t2s * t2s
+    da = torch.where(small, -1.0 / 3.0 + t2 / 30.0, (t * co - s) / (t2s * t))
+    db = torch.where(small, -1.0 / 12.0 + t2 / 180.0, (t * s - 2.0 * (1.0 - co)) / t4)
+    dc = torch.where(small, -1.0 / 60.0 + t2 / 1260.0,
+                     (3.0 * s - t * (2.0 + co)) / (t4 * t))
+    return a, b, c, da, db, dc
+
+
+def log_so3(R):
+    """Batched log map (3, 3, B) -> (3, B), gradient-safe near the
+    identity and near pi.
+
+    The angle is atan2(|antisym|/2, cos), not arccos, whose gradient at
+    cos = +-1 is 0 * inf = NaN even where the cotangent is zero (every
+    box-stack world starts at the identity); the sqrt is double-where
+    guarded where sin t -> 0, at t = 0 and at t = pi.
+    """
+    tr = R[0, 0] + R[1, 1] + R[2, 2]
+    cos_t = torch.clamp((tr - 1.0) / 2.0, -1.0, 1.0)
+    v = torch.stack([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    asq = torch.sum(v * v, dim=0)
+    a_degen = asq < 4.0 * _taylor_thresh(R.dtype)
+    sin_raw = 0.5 * torch.sqrt(torch.where(a_degen, torch.ones_like(asq), asq))
+    t_gen = torch.atan2(sin_raw, cos_t)
+    t_degen = torch.where(cos_t > 0.0, torch.zeros_like(cos_t),
+                          torch.full_like(cos_t, torch.pi))
+    t = torch.where(a_degen, t_degen, t_gen)
+    sin_t = torch.sin(t)
+    small = torch.abs(sin_t) < 1e-6
+    near_pi = cos_t < -1.0 + 1e-6
+    # Generic branch: w = t / (2 sin t) v.
+    coef = torch.where(small, 0.5 + t * t / 12.0,
+                       t / torch.where(small, torch.ones_like(sin_t), 2.0 * sin_t))
+    w_gen = coef * v
+    # Near pi: w = t times the unit column of (R + I)/2 with the largest
+    # diagonal entry, signed to agree with v.
+    Bp = (R + _eye3(R)) * 0.5
+    d = torch.stack([Bp[0, 0], Bp[1, 1], Bp[2, 2]])
+    k = torch.argmax(d, dim=0)
+    cols = Bp.permute(1, 0, 2)  # (3 columns, 3, B)
+    col = torch.gather(cols, 0, k[None, None, :].expand(1, 3, -1))[0]
+    nrm = torch.sqrt(torch.clamp(torch.sum(col * col, dim=0), min=1e-30))
+    w_pi = t * col / nrm
+    sgn = torch.where(torch.sum(w_pi * v, dim=0) < 0.0,
+                      -torch.ones_like(t), torch.ones_like(t))
+    return torch.where(near_pi, w_pi * sgn, w_gen)
 
 
 def ad_apply(V, U):

@@ -13,6 +13,7 @@ Spec layout (every array-like is converted with np.asarray):
      "solver": {SolverConfig field: value, ...},
      "parallel_velocity_and_position_updates": bool,
      "action_indices": (na,) or None,
+     "collision_overrides": [(body_i, body_j, collide: bool), ...],
      "skeletons": [
         {"name": str, "self_collision": bool, "adjacent_body_check": bool,
          "joints": [{"type", "parent", "name", "T_pj" (4,4), "T_cj" (4,4),
@@ -24,7 +25,15 @@ Spec layout (every array-like is converted with np.asarray):
                                  "friction", "restitution",
                                  "collidable"}]}]}]}
 
-Joint i of a skeleton carries body i.
+Joint i of a skeleton carries body i. Joint types are the names of
+dynamics/joints.py: "revolute" and "prismatic" (one axis), "weld" (none),
+"ball" (3 dofs: rotation coordinates w, R = exp(w)) and "free" (6 dofs:
+w, then the translation); a skeleton with them builds here, the batched
+engine takes these five. Shape types are those of dynamics/shapes.py,
+with their `size`: "box" full side lengths (3,), "plane" [nx, ny, nz,
+offset], "sphere" [radius], "capsule" [radius, height].
+collision_overrides names global body indices (bodies counted across
+the skeletons in order); False filters the pair, True forces it.
 """
 
 from __future__ import annotations
@@ -90,6 +99,8 @@ def world_from_arrays(spec: dict) -> World:
         world.add_skeleton(skel)
     if spec.get("action_indices") is not None:
         world.set_action_space(spec["action_indices"])
+    for i, j, collide in spec.get("collision_overrides", ()):
+        world.collision_overrides[(int(i), int(j))] = bool(collide)
     return world
 
 

@@ -1,6 +1,8 @@
 """Static skeleton, joint and shape specs (plan data)."""
 
 from nimblephysics_tpu_torch.dynamics.joints import (
+    BALL,
+    FREE,
     PRISMATIC,
     REVOLUTE,
     WELD,

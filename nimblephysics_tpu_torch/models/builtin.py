@@ -1,8 +1,9 @@
-"""Model zoo: the half-cheetah benchmark world, built in code.
+"""Model zoo: the half-cheetah benchmark world and the box stack, built
+in code.
 
 Counterpart of nimblephysics_tpu/models/builtin.py (physical parameters
-of the reference asset data/skel/half_cheetah.skel). Returns
-(World, q0, v0).
+of the reference asset data/skel/half_cheetah.skel; box_stack of the
+box-stack benchmark). Each returns (World, q0, v0).
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from typing import Tuple
 
 import numpy as np
 
-from nimblephysics_tpu_torch.dynamics.joints import PRISMATIC, REVOLUTE, WELD
+from nimblephysics_tpu_torch.dynamics.joints import FREE, PRISMATIC, REVOLUTE, WELD
 from nimblephysics_tpu_torch.dynamics.shapes import ShapeSpec
 from nimblephysics_tpu_torch.dynamics.skeleton import Skeleton
 from nimblephysics_tpu_torch.simulation.world import World
@@ -40,6 +41,13 @@ def _capsule(radius, height, T_offset=None, mu=1.0, e=0.0) -> ShapeSpec:
         friction=mu,
         restitution=e,
     )
+
+
+def inertia_box(mass, size) -> np.ndarray:
+    """Moment of a solid box with full side lengths `size` (3,) about its
+    COM (math/spatial.inertia_box of the JAX package)."""
+    x, y, z = np.asarray(size, dtype=np.float64)
+    return np.diag([y * y + z * z, x * x + z * z, x * x + y * y]) * mass / 12.0
 
 
 def _inertia_capsule(mass, radius, height) -> np.ndarray:
@@ -175,3 +183,43 @@ def half_cheetah(
     w.add_skeleton(sk)
     w.set_action_space(list(range(3, 9)))  # the 6 leg joints
     return w, np.zeros(9), np.zeros(9)
+
+
+def box_stack(
+    n_boxes: int = 2,
+    size: float = 0.2,
+    friction: float = 0.9,
+) -> Tuple[World, np.ndarray, np.ndarray]:
+    """`n_boxes` free boxes stacked on a ground plane, the box-box SAT
+    manifold workload: each box 75% the size of the one below, q0 stacking
+    them a hair (1e-4) into contact. Box i's dofs are 6i..6i+5: rotation
+    coordinates, then x, y, z."""
+    w = World(name="box_stack", time_step=0.001)
+    sizes = [size * (0.75**i) for i in range(n_boxes)]
+    for i, s in enumerate(sizes):
+        sk = Skeleton(f"box{i}")
+        sk.add_joint_and_body(
+            FREE,
+            name=f"box{i}",
+            mass=1.0,
+            inertia=inertia_box(1.0, np.full(3, s)),
+            shapes=(ShapeSpec("box", np.full(3, s, dtype=np.float64),
+                              friction=friction),),
+        )
+        w.add_skeleton(sk)
+    ground = Skeleton("ground")
+    ground.add_joint_and_body(
+        WELD,
+        name="ground",
+        mass=1.0,
+        shapes=(ShapeSpec("plane", np.array([0.0, 0.0, 1.0, 0.0]),
+                          friction=friction),),
+    )
+    w.add_skeleton(ground)
+    q0 = np.zeros(6 * n_boxes)
+    z = 0.0
+    for i, s in enumerate(sizes):
+        z += s / 2.0
+        q0[6 * i + 5] = z - 1e-4  # a hair into contact
+        z += s / 2.0
+    return w, q0, np.zeros(6 * n_boxes)

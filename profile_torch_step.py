@@ -2,15 +2,19 @@
 """Where a step of nimblephysics_tpu_torch's main path spends its time on
 one NVIDIA GPU.
 
-    python3 profile_torch_step.py [--trace PATH]
+    python3 profile_torch_step.py [--world half_cheetah|box3] [--trace PATH]
 
 Builds the main path of chip_smoke.py with its own functions (4096
-half-cheetahs, float32) and traces three cells with torch.profiler:
+worlds, float32) and traces it with torch.profiler. For the half-cheetah
+(the default), three cells:
   * the forward rollout under SolverConfig.throughput() and under the
     default SolverConfig (warm-started impulses, settled on the ground
     with chip_smoke.STEPS untraced steps), TRACED_STEPS steps each;
   * one training step (train_step_batched, horizon TRACED_STEPS, hidden
     chip_smoke.HIDDEN, the default SolverConfig) after an untraced one.
+For --world box3, the 3-box stack's forward rollout (chip_smoke's
+box_start, the default SolverConfig), settled with chip_smoke.STEPS
+untraced steps, TRACED_STEPS traced.
 Prints, per env-step of each cell: host milliseconds, CUDA kernel
 launches, summed kernel time and the device's busy share of the wall
 time, and the kernels that take the most device time; with --trace,
@@ -68,8 +72,7 @@ def profile(label, fn, steps, trace=None):
     launches = sum(
         1 for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CPU
-        and e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-                       "cuLaunchKernelEx")
+        and e.name in chip_smoke.LAUNCH_CALLS
     )
     kernel_us = sum(v[1] for v in by_name.values())
     summary = {
@@ -101,6 +104,7 @@ def profile(label, fn, steps, trace=None):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--world", choices=("half_cheetah", "box3"), default="half_cheetah")
     ap.add_argument("--trace", help="write Chrome traces to this path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -114,6 +118,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     summaries = []
+    if args.world == "box3":
+        _, q0, eng = chip_smoke.make_box_engine(dev, 3)
+        carry, u = chip_smoke.box_start(eng, q0, np.random.RandomState(chip_smoke.SEED), dev)
+        carry = chip_smoke.rollout(eng, carry, u, chip_smoke.STEPS)
+        torch.cuda.synchronize()
+        summaries.append(profile(
+            "box3_forward_default", lambda: chip_smoke.rollout(eng, carry, u, TRACED_STEPS),
+            TRACED_STEPS, args.trace))
+        print(json.dumps(summaries))
+        return 0
     for label, cfg in (("forward_throughput", None), ("forward_default", SolverConfig())):
         _, q0, v0, eng = chip_smoke.make_engine(dev, cfg)
         rng = np.random.RandomState(chip_smoke.SEED)

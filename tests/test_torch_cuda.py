@@ -1,8 +1,11 @@
 """Card-only tests of nimblephysics_tpu_torch: the APGD seed kernel, with
 and without its Gauss-Seidel polish (K1 and K1b), against its plain
-PyTorch version in float32 at the main path's shape and at the box
-stack's (n = 144, r = 18), its refusal beyond its launch plan, and the
-training step's kernel launches and gradients.
+PyTorch version in float32 at the main path's shape, at the box stack's
+(n = 144, r = 18) and on the box-stack engine's own LCPs (2 and 3 boxes,
+5 boxes under contact_cap 48, one island of the islands scene), its
+refusal beyond its launch plan (a 10-box stack's capped LCP included),
+the islands' one launch per island and step, and the training step's
+kernel launches and gradients.
 
 They need an NVIDIA GPU and nvcc and skip elsewhere. This file imports
 neither jax nor the JAX package, so that it runs where only PyTorch is
@@ -217,3 +220,95 @@ def test_training_step_launches_the_kernel_once_per_step():
     for p in policy.parameters():
         assert torch.isfinite(p.grad).all()
     assert any(float(p.grad.abs().max()) > 0 for p in policy.parameters())
+
+
+# The box-stack path: (boxes, contact_cap, filter the box-box pairs).
+BOX_LEGS = {"box2": (2, None, False), "box3": (3, None, False),
+            "box5_cap48": (5, 48, False), "islands": (3, None, True)}
+
+
+def _box_engine(dev, n_boxes, cap=None, islands=False):
+    """box_stack(n_boxes) under its default SolverConfig on the card, with
+    contact_cap `cap`, or as the islands scene (box-box pairs filtered,
+    the boxes spread along x); and its start q0."""
+    import dataclasses
+
+    from nimblephysics_tpu_torch.batched import BatchedEngine
+    from nimblephysics_tpu_torch.models import box_stack
+
+    world, q0, _ = box_stack(n_boxes)
+    if cap is not None:
+        world.solver = dataclasses.replace(world.solver, contact_cap=cap)
+    if islands:
+        for i in range(n_boxes):
+            for j in range(i + 1, n_boxes):
+                world.collision_overrides[(i, j)] = False
+            q0[6 * i + 3:6 * i + 6] = (1.0 * i, 0.0, 0.2 * 0.75**i / 2 - 1e-4)
+    return BatchedEngine(world, device=dev), q0
+
+
+def _box_state(dev, eng, q0, B, steps):
+    """q0 with the top box's yaw jittered by +-0.2 (boxstack_bench.py's
+    start), after `steps` warm-started steps: (q, v, z, u)."""
+    rng = np.random.RandomState(5)
+    q = np.tile(q0[:, None], (1, B))
+    q[len(q0) - 4] += rng.uniform(-0.2, 0.2, B)
+    q = torch.as_tensor(q, dtype=torch.float32, device=dev)
+    v, u = torch.zeros_like(q), torch.zeros_like(q)
+    z = None
+    for _ in range(steps):
+        r = eng.step(q, v, u, z_warm=z)
+        q, v, z = r.q, r.v, r.impulses
+    return q, v, z, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweeps", [0, 16], ids=["K1", "K1b"])
+@pytest.mark.parametrize("leg", BOX_LEGS)
+def test_box_stack_engine_lcp_matches_plain(leg, sweeps):
+    """The LCP each leg's step solves (the capped one, an island's),
+    warm-started as in a rollout: kernel against plain."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    dev = _cuda()
+    eng, q0 = _box_engine(dev, *BOX_LEGS[leg])
+    q, v, z, u = _box_state(dev, eng, q0, 1024, 3)
+    (meta, F, b, mu, zw), = eng.lcp_blocks(eng.lcp_problem(q, v, u), z)[0][:1]
+    F, b, mu, zw = (x.contiguous() for x in (F, b, mu, zw))
+    got = lcp_cuda.apgd_cuda(meta, F, b, mu, zw, pgs_sweeps=sweeps)
+    want = lcp_cuda.apgd_plain(meta, F, 0.0, b, mu, zw)
+    if sweeps:
+        want = lcp_cuda.pgs_plain(meta, F, 0.0, b, mu, want, sweeps=sweeps)
+    torch.cuda.synchronize()
+    scale = 1.0 + want.abs().amax(dim=0)
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= (PGS_TOL if sweeps else KERNEL_TOL) * scale).all()
+    assert float(want.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_islands_launch_the_seed_once_per_island_and_step():
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    dev = _cuda()
+    eng, q0 = _box_engine(dev, *BOX_LEGS["islands"])
+    assert len(eng.islands) == 3
+    lcp_cuda.apgd_seed.launches = 0
+    q, v, z, _ = _box_state(dev, eng, q0, 256, 2)
+    torch.cuda.synchronize()
+    assert lcp_cuda.apgd_seed.launches == 6
+    assert torch.isfinite(q).all() and torch.isfinite(z).all()
+
+
+@pytest.mark.cuda
+def test_ten_box_stack_is_refused_with_its_numbers():
+    """The 10-box leg's capped LCP (contact_cap 96: n = 288, r = 60) is
+    past the kernel's capacity: the step raises, nothing is launched."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    dev = _cuda()
+    eng, q0 = _box_engine(dev, 10, 96)
+    before = lcp_cuda.apgd_seed.launches
+    with pytest.raises(NotImplementedError, match="n=288, r=60"):
+        _box_state(dev, eng, q0, 64, 1)
+    assert lcp_cuda.apgd_seed.launches == before

@@ -2,7 +2,9 @@
 package's: dofs, rows, contacts, the LCP row plan, limit rows, the
 flattened tree and the collider's slots. Checked for the port's own
 model builder and for a world carried across with
-convert.world_from_arrays."""
+convert.world_from_arrays. The same for the 2- and 3-box stacks and the
+islands scene of tests/test_islands.py (free joints, box shapes,
+collision overrides), carried across with world_from_arrays."""
 
 import numpy as np
 import pytest
@@ -14,7 +16,7 @@ from nimblephysics_tpu.batched.articulated import FlatWorld as JaxFlat
 from nimblephysics_tpu_torch.batched.articulated import FlatWorld
 from nimblephysics_tpu_torch.batched.engine import BatchedEngine
 from nimblephysics_tpu_torch.convert import state_to_torch, world_from_arrays
-from torch_parity import dump_world, half_cheetah_pair
+from torch_parity import box_stack_pair, dump_world, half_cheetah_pair, islands_scene
 
 SOURCES = ["builder", "world_from_arrays"]
 
@@ -116,3 +118,56 @@ def test_state_to_torch():
     tq, tv, tz = state_to_torch(q, 2 * q, device="cpu", dtype=torch.float64)
     assert tq.dtype == torch.float64 and tz is None
     np.testing.assert_array_equal(tv.numpy(), 2 * q)
+
+
+BOX_WORLDS = {
+    "box2": lambda: box_stack_pair(2),
+    "box3": lambda: box_stack_pair(3),
+    "islands": lambda: islands_scene(3),
+}
+
+
+@pytest.mark.parametrize("name", BOX_WORLDS)
+def test_box_world_plans_match_jax(name):
+    """Joints, slots, rows and LcpMeta of a world carried across."""
+    from nimblephysics_tpu_torch.models import box_stack
+
+    jw, tw, _ = BOX_WORLDS[name]()
+    je, te = JaxEngine(jw), BatchedEngine(tw, device="cpu", dtype=torch.float64)
+    jf, tf = je.fw, te.fw
+    assert tf.nb == jf.nb and tf.nv == jf.nv
+    np.testing.assert_array_equal(tf.anc, jf.anc)
+    for a, b in zip(tf.G_body, jf.G_body):
+        np.testing.assert_allclose(a, b, rtol=1e-14, atol=1e-14)
+    for tj, jj in zip(tf.joints, jf.joints):
+        assert (tj.parent, tj.q_index, tj.num_dofs, tj.spec.joint_type) == (
+            jj.parent, jj.q_index, jj.num_dofs, jj.spec.joint_type)
+        for f in ("R_pj", "p_pj", "R_ci", "p_ci", "Ad_cj"):
+            np.testing.assert_allclose(getattr(tj, f), getattr(jj, f), atol=1e-14)
+        if jj.num_dofs:  # constant S, or S(q) for a free joint
+            assert (tj.S_const is None) == (jj.S_const is None)
+    tc, jc = te.bcollider, je.bcollider
+    assert [(s.kind, s.body_a, s.body_b, s.n_slots) for s in tc.slots] == [
+        (s.kind, s.body_a, s.body_b, s.n_slots) for s in jc.slots]
+    np.testing.assert_allclose(tc.mu, jc.mu)
+    np.testing.assert_allclose(tc.restitution, jc.restitution)
+    assert tc.num_contacts == jc.num_contacts
+    assert te.num_rows == je.num_rows and te.skel_slices == je.skel_slices
+    assert te.assembler.limit_rows == [] and je.assembler.limit_rows == []
+    tm, jm = te.meta, je.meta
+    np.testing.assert_array_equal(tm.findex, jm.findex)
+    np.testing.assert_array_equal(tm.is_friction, jm.is_friction)
+    for f in ("lo_const", "hi_const", "iterations", "tol", "ridge", "refine_rounds",
+              "seed_pgs_sweeps", "k_active", "solver"):
+        assert getattr(tm, f) == getattr(jm, f), f
+    assert (te.islands is None) == (je.islands is None)
+    assert te.contact_cap == je.contact_cap is None
+    n_boxes = tf.nv // 6
+    expect = {"box2": (24, 72), "box3": (48, 144), "islands": (24, 72)}[name]
+    assert (tc.num_contacts, te.num_rows) == expect
+    if name != "islands":
+        # The port's own box_stack gives the world carried across.
+        bw, q0, _ = box_stack(n_boxes)
+        np.testing.assert_allclose(q0, BOX_WORLDS[name]()[2])
+        assert [s.kind for s in BatchedEngine(bw, device="cpu").bcollider.slots] == [
+            s.kind for s in tc.slots]

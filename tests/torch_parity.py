@@ -75,6 +75,7 @@ def dump_world(world) -> dict:
             world.parallel_velocity_and_position_updates
         ),
         action_indices=np.asarray(world.action_indices),
+        collision_overrides=[(i, j, c) for (i, j), c in world.collision_overrides.items()],
         skeletons=skels,
     )
 
@@ -92,6 +93,40 @@ def half_cheetah_pair():
     tw, _, _ = half_cheetah()
     tw.solver = SolverConfig.throughput()
     return jw, tw, np.asarray(q0, np.float64)
+
+
+def box_stack_pair(n_boxes, solver="default", **solver_kw):
+    """(JAX world, port world, q0) of box_stack(n_boxes), the port's
+    carried across with world_from_arrays, under the default
+    SolverConfig or throughput(), with solver_kw replaced."""
+    from nimblephysics_tpu.models import box_stack
+    from nimblephysics_tpu.simulation.world import SolverConfig as JaxCfg
+
+    from nimblephysics_tpu_torch.convert import world_from_arrays
+
+    jw, q0, _ = box_stack(n_boxes=n_boxes)
+    cfg = JaxCfg() if solver == "default" else JaxCfg.throughput()
+    jw.solver = dataclasses.replace(cfg, **solver_kw)
+    return jw, world_from_arrays(dump_world(jw)), np.asarray(q0, np.float64)
+
+
+def islands_scene(n_boxes=3, **solver_kw):
+    """(JAX world, port world, q) of tests/test_islands.py's scene: box_stack
+    with every box-box pair filtered off and the boxes spread along x,
+    each a hair into the ground, so that each box is its own island."""
+    jw, tw, q0 = box_stack_pair(n_boxes, **solver_kw)
+    for i in range(n_boxes):
+        for j in range(i + 1, n_boxes):
+            jw.collision_overrides[(i, j)] = False
+    from nimblephysics_tpu_torch.convert import world_from_arrays
+
+    tw = world_from_arrays(dump_world(jw))
+    q = q0.copy()
+    for i in range(n_boxes):
+        q[6 * i + 3] = 1.0 * i
+        q[6 * i + 4] = 0.0
+        q[6 * i + 5] = 0.2 * 0.75**i / 2 - 1e-4
+    return jw, tw, q
 
 
 def batch_states(q0, B, seed, drop=0.0, spread=0.03):
