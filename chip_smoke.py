@@ -182,6 +182,44 @@ VJP_COS = 0.999999
 VJP_REL = 2e-6
 VJP_WORLDS = 64
 VJP_STEPS = 4
+# Seeded random LCPs (phases 9 and 14): z is shown; held are u = F^T z
+# (relative to 1 + max|u|) and the natural-map residual. Read on the H100
+# (PERF.md): K1 gaps up to 8.5e-6 in u and 5.4e-6 in the residual; K1b
+# (16 sweeps in float32 from an unconverged seed) up to 1.4e-3 and 1.2e-3
+# on the island's shape, where z reads 6.6e-4 and the plain version moves
+# 1.0e-3 between float32 and float64: u and the residual move as much as
+# z, so z's drift is not along F's null space. The limits are ~7x the
+# largest reading; the planted faults of phases 3, 6 and 9 land at
+# 2.4e-3 to 9.2e-2 on z.
+RAND_U_TOL = 1e-2
+RAND_RES_TOL = 1e-2
+# Phase 15: tests/test_reference_workloads.py's settling (600 steps, no
+# torque) and arm-torque (300 steps there, TORQUE_STEPS here) checks at
+# SETTLE_WORLDS worlds; tests/test_motors.py's limits after STEPS steps:
+# the ball's anchor within 5e-3, the weld's pose within 2e-3; the servo's
+# velocity to its force-limited value, the mimic's ratio and the locked
+# joint's rest to float32 rounding (read 1.9e-7, 3.0e-8 and 1.9e-9).
+SETTLE_WORLDS = 256
+SETTLE_STEPS = 600
+TORQUE_STEPS = 100
+BALL_DRIFT = 5e-3
+WELD_DRIFT = 2e-3
+SERVO_REL = 1e-4
+MIMIC_ABS = 1e-5
+LOCKED_ABS = 1e-5
+# Phase 17: one step of the slice's worlds, card vs the CPU's float32 path
+# with the card's seed, every world: impulses relative to 1 + max|z|, v to
+# 1 + max|v|. Read on the H100 (PERF.md): up to 3.5e-6 and 1.8e-6 (the
+# five-shape world; jump_worm 4.3e-7 and 6.5e-7, the ball 1.5e-7 and
+# 1.8e-6); the limits are ~10x. q against the CPU's float64 path as
+# DQ_TOL (read up to 3.3e-8). The no-row worlds against float64 (read
+# 2.9e-8 in q, 6.0e-7 in v) and the servo VJP (read |dg|/|g| 8.9e-8,
+# cosine 1 to 8 digits): the limits are ~10-35x.
+SLICE_DZ_SAME = 4e-5
+SLICE_DV_SAME = 2e-5
+NOROW_DQ = 1e-6
+NOROW_DV = 1e-5
+SERVO_VJP_REL = 1e-6
 
 
 def check(cond, msg):
@@ -613,9 +651,73 @@ def box_cases(dev):
     return cases
 
 
+def engine_lcp_check(phase, label, meta, F, b, mu, zw, report, fault=None):
+    """K1 and K1b on one of the engine's own LCPs against their plain
+    versions, from its warm start zw and cold (a rollout's first step):
+    errors, times, bounds and the launch plan; with fault = (what, fn),
+    fn(meta, F, b, mu, z0, z_plain) gives the plain K1 and K1b outputs of
+    a planted fault, which must miss both limits. The limits are relative
+    to 1 + max|z|; where impulses are ~5e-3 they are ~1e-5 and 1e-4
+    absolute and the warm-started seed has converged (one iteration or
+    sweep fewer moves it ~1e-9), so the faults change the LCP itself.
+    Returns {"n", "r", "B", "impulse_max", "k1": {...}, "k1b": {...}}."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    F, b, mu, zw = (x.detach().contiguous() for x in (F, b, mu, zw))
+    n, r, B = F.shape
+    sweeps = meta.seed_pgs_sweeps
+    check(sweeps == 16, f"{label}: not the default config")
+    plan = lcp_cuda.seed_plan(n, r, lcp_cuda.smem_limit(F.device.index))
+    row = {"n": n, "r": r, "B": B}
+    errs = {}
+    for start, z0 in (("warm", zw), ("cold", torch.zeros_like(zw))):
+        z1 = lcp_cuda.apgd_cuda(meta, F, b, mu, z0)
+        p1 = lcp_cuda.apgd_plain(meta, F, 0.0, b, mu, z0)
+        z2 = lcp_cuda.apgd_cuda(meta, F, b, mu, z0, pgs_sweeps=sweeps)
+        p2 = lcp_cuda.pgs_plain(meta, F, 0.0, b, mu, p1, sweeps=sweeps)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(z1).all() and torch.isfinite(z2).all()),
+              f"{label}: kernel output not finite ({start})")
+        errs["k1", start], errs["k1b", start] = rel_err(z1, p1), rel_err(z2, p2)
+        if start == "warm":
+            row["impulse_max"] = float(p2.abs().max())
+            if fault:
+                d1, d2 = fault[1](meta, F, b, mu, z0, p2)
+                faults = (rel_err(z1, d1)[1], rel_err(z2, d2)[1])
+    for key, sw, tol in (("k1", 0, KERNEL_TOL), ("k1b", sweeps, PGS_TOL)):
+        ms = cuda_ms(lambda: lcp_cuda.apgd_cuda(meta, F, b, mu, zw, pgs_sweeps=sw), 20)
+        plain = ((lambda: lcp_cuda.seed_plain(meta, F, 0.0, b, mu, zw)) if sw
+                 else (lambda: lcp_cuda.apgd_plain(meta, F, 0.0, b, mu, zw)))
+        plain_ms = cuda_ms(plain, 2 if sw else 5, warmup=1)
+        bound, by = apgd_bound_ms(n, r, B, meta.iterations, sw)
+        regs, spill = report.get((plan.rank_width, plan.rows_per_lane, sw > 0), (-1, -1))
+        warps = lcp_cuda.resident_warps(plan, sw > 0)
+        (wa, wr), (ca, cr) = errs[key, "warm"], errs[key, "cold"]
+        row[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                        max_abs_err=max(wa, ca), rel=max(wr, cr))
+        print(f"{phase} ({label}, {'K1b' if sw else 'K1 '}): n={n} r={r} B={B}: "
+              f"vs plain, max|dz| and max|dz|/(1+max|z|): warm start {wa:.3e}, "
+              f"{wr:.3e}; cold {ca:.3e}, {cr:.3e} (tol {tol:g}); {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); width "
+              f"{plan.rank_width}, {plan.rows_per_lane} rows a lane, "
+              f"{plan.worlds_per_block} worlds a block, {plan.smem_bytes} bytes, "
+              f"{warps} resident warps/SM, {regs} registers, {spill} bytes spilled")
+        check(max(wr, cr) <= tol,
+              f"{label}: {'K1b' if sw else 'K1'} disagrees with its plain version")
+    print(f"{phase} ({label}): the engine's max|z| {row['impulse_max']:.4e}")
+    if fault:
+        print(f"{phase} ({label}): planted fault, {fault[0]}: K1 {faults[0]:.3e} "
+              f"(> {KERNEL_TOL:g}), K1b {faults[1]:.3e} (> {PGS_TOL:g})")
+        check(faults[0] > KERNEL_TOL and faults[1] > PGS_TOL,
+              f"{label}: the limits cannot tell {fault[0]}")
+    return row
+
+
 def phase9(dev, report):
     """K1 and K1b on each box-stack leg's own LCP (the capped one on the
-    5-box leg, the first island's in the islands scene)."""
+    5-box leg, the first island's in the islands scene), with a dropped
+    contact as the planted fault, and a seeded random LCP on the same
+    rows and rank (random_check)."""
     from nimblephysics_tpu_torch.batched import lcp_cuda
 
     out = {}
@@ -625,81 +727,9 @@ def phase9(dev, report):
         prob = eng.lcp_problem(q, v, u)
         blocks, _ = eng.lcp_blocks(prob, z)
         meta, F, b, mu, zw = blocks[0]
-        F, b, mu, zw = (x.contiguous() for x in (F, b, mu, zw))
-        n, r, B = F.shape
-        sweeps = meta.seed_pgs_sweeps
-        check(sweeps == 16, f"{label}: not the default config")
-        plan = lcp_cuda.seed_plan(n, r, lcp_cuda.smem_limit(F.device.index))
-        row = {"n": n, "r": r, "B": B}
-        # The rollout's warm start and a cold one (a rollout's first step),
-        # held to the limits. The engine's impulses are ~5e-3, so the limits
-        # (relative to 1 + max|z|) are ~1e-5 and 1e-4 absolute here, and the
-        # warm-started seed has converged: one iteration or sweep fewer
-        # moves it ~1e-9. The planted fault is a dropped contact: the plain
-        # version on the LCP with each world's most loaded contact (its
-        # normal and friction rows) zeroed, as a kernel that skipped a row
-        # would compute. A seeded random LCP on the same rows and rank
-        # (F 0.5 N(0, 1), b N(0, 1)) is shown beside, against the plain
-        # version in float32 and in float64: with rank r in n >> r rows
-        # the polish drifts along A's null space in either precision.
-        errs = {}
-        for start, z0 in (("warm", zw), ("cold", torch.zeros_like(zw))):
-            z1 = lcp_cuda.apgd_cuda(meta, F, b, mu, z0)
-            p1 = lcp_cuda.apgd_plain(meta, F, 0.0, b, mu, z0)
-            z2 = lcp_cuda.apgd_cuda(meta, F, b, mu, z0, pgs_sweeps=sweeps)
-            p2 = lcp_cuda.pgs_plain(meta, F, 0.0, b, mu, p1, sweeps=sweeps)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(z1).all() and torch.isfinite(z2).all()),
-                  f"{label}: kernel output not finite ({start})")
-            errs["k1", start], errs["k1b", start] = rel_err(z1, p1), rel_err(z2, p2)
-            if start == "warm":
-                row["impulse_max"] = float(p2.abs().max())
-                keep = torch.ones_like(zw)
-                k = torch.argmax(p2[0::3], dim=0)  # each world's most loaded contact
-                for i in range(3):
-                    keep.scatter_(0, (3 * k + i)[None], 0.0)
-                Fd, bd = F * keep[:, None], b * keep
-                d1 = lcp_cuda.apgd_plain(meta, Fd, 0.0, bd, mu, z0)
-                d2 = lcp_cuda.seed_plain(meta, Fd, 0.0, bd, mu, z0)
-                faults = (rel_err(z1, d1)[1], rel_err(z2, d2)[1])
-        Fr, br, mur, zr = random_lcp(meta, r, B, np.random.RandomState(SEED + 90), dev)
-        rnd = {}
-        for key, sw in (("k1", 0), ("k1b", sweeps)):
-            zk = lcp_cuda.apgd_cuda(meta, Fr, br, mur, zr, pgs_sweeps=sw)
-            p32, p64 = (lcp_cuda.seed_plain(dataclasses.replace(meta, seed_pgs_sweeps=sw),
-                                            *(x.to(dt) for x in (Fr,)), 0.0,
-                                            *(x.to(dt) for x in (br, mur, zr)))
-                        for dt in (torch.float32, torch.float64))
-            rnd[key] = (rel_err(zk, p32)[1], rel_err(zk.double(), p64)[1],
-                        rel_err(p32.double(), p64)[1])
-        for key, sw, tol in (("k1", 0, KERNEL_TOL), ("k1b", sweeps, PGS_TOL)):
-            ms = cuda_ms(lambda: lcp_cuda.apgd_cuda(meta, F, b, mu, zw, pgs_sweeps=sw), 20)
-            plain = ((lambda: lcp_cuda.seed_plain(meta, F, 0.0, b, mu, zw)) if sw
-                     else (lambda: lcp_cuda.apgd_plain(meta, F, 0.0, b, mu, zw)))
-            plain_ms = cuda_ms(plain, 2 if sw else 5, warmup=1)
-            bound, by = apgd_bound_ms(n, r, B, meta.iterations, sw)
-            regs, spill = report.get((plan.rank_width, plan.rows_per_lane, sw > 0), (-1, -1))
-            warps = lcp_cuda.resident_warps(plan, sw > 0)
-            (wa, wr), (ca, cr) = errs[key, "warm"], errs[key, "cold"]
-            row[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                            max_abs_err=max(wa, ca), rel=max(wr, cr))
-            print(f"phase 9 ({label}, {'K1b' if sw else 'K1 '}): n={n} r={r} B={B}: "
-                  f"vs plain, max|dz| and max|dz|/(1+max|z|): warm start {wa:.3e}, "
-                  f"{wr:.3e}; cold {ca:.3e}, {cr:.3e} (tol {tol:g}); random LCP: "
-                  f"kernel vs plain f32 {rnd[key][0]:.3e}, vs plain f64 {rnd[key][1]:.3e}, "
-                  f"plain f32 vs f64 {rnd[key][2]:.3e}; {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); width "
-                  f"{plan.rank_width}, {plan.rows_per_lane} rows a lane, "
-                  f"{plan.worlds_per_block} worlds a block, {plan.smem_bytes} bytes, "
-                  f"{warps} resident warps/SM, {regs} registers, {spill} bytes spilled")
-            check(max(wr, cr) <= tol,
-                  f"{label}: {'K1b' if sw else 'K1'} disagrees with its plain version")
-        print(f"phase 9 ({label}): planted fault, a dropped contact: K1 {faults[0]:.3e} "
-              f"(> {KERNEL_TOL:g}), K1b {faults[1]:.3e} (> {PGS_TOL:g}); the engine's "
-              f"max|z| {row['impulse_max']:.4e}")
-        check(faults[0] > KERNEL_TOL, f"{label}: the K1 limit cannot tell a dropped contact")
-        check(faults[1] > PGS_TOL, f"{label}: the K1b limit cannot tell a dropped contact")
-        out[label] = row
+        out[label] = engine_lcp_check("phase 9", label, meta, F, b, mu, zw, report,
+                                      ("a dropped contact", dropped_contact))
+        random_check(f"phase 9 ({label})", meta, F.shape[1], F.shape[2], dev, SEED + 90)
 
     # Past the kernel's capacity: the 10-box leg's capped LCP is refused,
     # with its numbers, and nothing is launched.
@@ -928,6 +958,613 @@ def box_kernel_entries(k9, legs, isl):
     return out
 
 
+# -- the rest of the batched engine (phases 14-17) -----------------------------
+
+# The reference suite's worlds (benchmarks/reference_suite.py): 4096 worlds,
+# q0 + 0.003 N(0, 1), the tanh-MLP policy (hidden 64) on [q; v], warm-started
+# impulses; forward 100 steps, training horizon 50.
+REF_WORLDS = ("jump_worm", "catapult")
+REF_HORIZON = 50
+# The constraint families of tests/test_motors.py, one small world each.
+MOTOR_SCENES = ("servo", "mimic", "locked", "ball", "weld")
+
+
+def _translation(p):
+    T = np.eye(4)
+    T[:3, 3] = p
+    return T
+
+
+def _pendulum(links):
+    """tests/worlds.py's pendulum (1 link) or double pendulum (2): unit
+    links of mass 1 swinging about world y, each joint half a link above
+    its body's centre."""
+    from nimblephysics_tpu_torch.dynamics import REVOLUTE, Skeleton
+
+    sk = Skeleton("pendulum" if links == 1 else "double_pendulum")
+    body = -1
+    for i in range(links):
+        body = sk.add_joint_and_body(
+            REVOLUTE, parent=body, name=f"link{i}", axis=[0.0, 1.0, 0.0],
+            T_pj=None if i == 0 else _translation((0.0, 0.0, -0.5)),
+            T_cj=_translation((0.0, 0.0, 0.5)), mass=1.0, inertia=np.eye(3) / 12.0)
+    return sk
+
+
+def _free_box(size=0.2):
+    """tests/worlds.py's free_box: a free unit-mass box of side `size`."""
+    from nimblephysics_tpu_torch.dynamics import FREE, ShapeSpec, Skeleton
+    from nimblephysics_tpu_torch.models.builtin import inertia_box
+
+    sk = Skeleton("box")
+    sk.add_joint_and_body(FREE, name="box", mass=1.0, inertia=inertia_box(1.0, np.full(3, size)),
+                          shapes=(ShapeSpec("box", np.full(3, size)),))
+    return sk
+
+
+def _ground():
+    """tests/worlds.py's ground_plane: the z = 0 plane, restitution 1."""
+    from nimblephysics_tpu_torch.dynamics import WELD, ShapeSpec, Skeleton
+
+    sk = Skeleton("ground")
+    sk.add_joint_and_body(WELD, name="ground", mass=1.0, shapes=(
+        ShapeSpec("plane", np.array([0.0, 0.0, 1.0, 0.0]), restitution=1.0),))
+    return sk
+
+
+def motor_scene(name):
+    """One constraint family of tests/test_motors.py, built with the port's
+    API: (world, q0, v0, control), the last three (nv,).
+      servo: a pendulum, no gravity, a servo of force limit 0.01 told 10
+        rad/s (test_servo_respects_force_limit: it saturates);
+      mimic: a double pendulum, no gravity, dof 1 mimicking half of dof 0
+        (limit 1e4), dof 0 driven (test_mimic_motor);
+      locked: a pendulum under gravity, locked at 0.8 rad moving at 0.5
+        (test_locked_joint);
+      ball: a free box pinned by its corner (0.1, 0, 0.1) to the world point
+        (0.1, 0, 1) over the ground (test_ball_constraint_pins_point);
+      weld: two free boxes welded 0.4 apart in x and 0.1 in z, the first
+        spinning (test_weld_batched_matches_single's pose)."""
+    from nimblephysics_tpu_torch.simulation import World
+
+    if name in ("servo", "mimic", "locked"):
+        world = World(gravity=(0.0, 0.0, 0.0 if name != "locked" else -9.81))
+        world.add_skeleton(_pendulum(2 if name == "mimic" else 1))
+        if name == "servo":
+            world.set_actuator_type(0, "servo", force_limit=0.01)
+            return world, np.zeros(1), np.zeros(1), np.array([10.0])
+        if name == "mimic":
+            world.set_actuator_type(1, "mimic", force_limit=1e4, mimic_dof=0,
+                                    mimic_multiplier=0.5)
+            return world, np.zeros(2), np.array([1.0, 0.0]), np.array([2.0, 0.0])
+        world.set_actuator_type(0, "locked")
+        return world, np.array([0.8]), np.array([0.5]), np.zeros(1)
+    world = World(time_step=1e-3)
+    if name == "ball":
+        world.add_skeleton(_free_box())
+        world.add_skeleton(_ground())
+        world.add_ball_joint_constraint(0, [0.1, 0.0, 0.1], 1, [0.1, 0.0, 1.0])
+        q0 = np.zeros(6)
+        q0[5] = 0.9
+        return world, q0, np.zeros(6), np.zeros(6)
+    world.add_skeleton(_free_box())
+    world.add_skeleton(_free_box())
+    q0 = np.zeros(12)
+    q0[9], q0[11] = 0.4, 0.1
+    world.add_weld_joint_constraint(0, 1, at_positions=q0)
+    v0 = np.zeros(12)
+    v0[0] = 0.5
+    return world, q0, v0, np.zeros(12)
+
+
+def constraint_drift(eng, q):
+    """How far eng's ball and weld constraints are from holding at q
+    (nv, B), per world: the largest gap |p_a - p_b| between a constraint's
+    two anchor points, and the largest weld rotation error
+    |log(R_a rel R_b^T)| (0 without a weld); tests/test_motors.py holds
+    both within its limits."""
+    from nimblephysics_tpu_torch.batched import linalg as bl
+    from nimblephysics_tpu_torch.batched.articulated import fk
+
+    R, p, *_ = fk(eng.fw, q)
+    gap = rot = q.new_zeros(q.shape[-1])
+    for k in eng._c.dyn:
+        pa = bl.mv(R[k.body_a], k.offset_a) + p[k.body_a]
+        pb = bl.mv(R[k.body_b], k.offset_b) + p[k.body_b]
+        gap = torch.maximum(gap, (pa - pb).norm(dim=0))
+        if k.kind == "weld":
+            R_e = bl.mm(bl.mm(R[k.body_a], k.rel_rot), R[k.body_b].transpose(0, 1))
+            rot = torch.maximum(rot, bl.log_so3(R_e).norm(dim=0))
+    return gap, rot
+
+
+def make_ref_engine(dev, name, dtype=torch.float32):
+    """The reference suite's world `name` (jump_worm or catapult) under the
+    default SolverConfig, and its engine."""
+    from nimblephysics_tpu_torch import models
+    from nimblephysics_tpu_torch.batched import BatchedEngine
+
+    world, q0, v0 = getattr(models, name)()
+    return world, q0, v0, BatchedEngine(world, device=dev, dtype=dtype)
+
+
+def ref_start(eng, q0, v0, rng, dev, worlds=None):
+    """reference_suite.bench_workload's start: q0 + 0.003 N(0, 1), v0 and
+    zero impulses in every world, and its policy (hidden HIDDEN, weights
+    0.1 N(0, 1), zero biases). Returns ((q, v, z), policy)."""
+    from nimblephysics_tpu_torch.convert import policy_from_arrays
+
+    worlds = worlds or BATCH
+    nv, na = len(q0), eng.world.action_size
+    q = q0[:, None] + 0.003 * rng.randn(nv, worlds)
+    carry = (_on(dev, q).to(eng.dtype), _on(dev, np.tile(v0[:, None], (1, worlds))).to(eng.dtype),
+             torch.zeros(eng.num_rows, worlds, dtype=eng.dtype, device=dev))
+    weights = (0.1 * rng.randn(HIDDEN, 2 * nv), np.zeros((HIDDEN, 1)),
+               0.1 * rng.randn(na, HIDDEN), np.zeros((na, 1)))
+    return carry, policy_from_arrays(*weights, device=dev, dtype=eng.dtype)
+
+
+def policy_rollout(eng, carry, policy, steps):
+    """`steps` warm-started steps from carry = (q, v, z), each driven by
+    policy([q; v]) through action_to_forces."""
+    q, v, z = carry
+    with torch.no_grad():
+        for _ in range(steps):
+            r = eng.step(q, v, eng.action_to_forces(policy(torch.cat([q, v]))), z_warm=z)
+            q, v, z = r.q, r.v, r.impulses
+    return q, v, z
+
+
+def motor_start(eng, name, rng, dev, worlds=None):
+    """motor_scene(name)'s start in every world: the pendulums' q jittered
+    by 0.05 N(0, 1), the boxes' v by 0.1 N(0, 1) (their q is where the
+    constraint holds); zero impulses. Returns ((q, v, z), control)."""
+    _, q0, v0, u0 = motor_scene(name)
+    worlds = worlds or BATCH
+    nv = len(q0)
+    q = np.tile(q0[:, None], (1, worlds))
+    v = np.tile(v0[:, None], (1, worlds))
+    if name in ("ball", "weld"):
+        v += 0.1 * rng.randn(nv, worlds)
+    else:
+        q += 0.05 * rng.randn(nv, worlds)
+    z = torch.zeros(eng.num_rows, worlds, dtype=eng.dtype, device=dev)
+    return ((_on(dev, q).to(eng.dtype), _on(dev, v).to(eng.dtype), z),
+            _on(dev, np.tile(u0[:, None], (1, worlds))).to(eng.dtype))
+
+
+def slice_engines(dev, dtype=torch.float32):
+    """(label, world, engine, start) of this slice's worlds on the card:
+    jump_worm and catapult (start: ((q, v, z), policy)) and each motor
+    scene (start: ((q, v, z), control))."""
+    from nimblephysics_tpu_torch.batched import BatchedEngine
+
+    out = []
+    for i, name in enumerate(REF_WORLDS):
+        world, q0, v0, eng = make_ref_engine(dev, name, dtype)
+        out.append((name, world, eng,
+                    ref_start(eng, q0, v0, np.random.RandomState(SEED + 140 + i), dev)))
+    for i, name in enumerate(MOTOR_SCENES):
+        world = motor_scene(name)[0]
+        eng = BatchedEngine(world, device=dev, dtype=dtype)
+        out.append((name, world, eng,
+                    motor_start(eng, name, np.random.RandomState(SEED + 145 + i), dev)))
+    return out
+
+
+def advance(eng, carry, drive, steps):
+    """`steps` warm-started steps of a slice world: drive is its policy
+    (the reference worlds) or its fixed control (the motor scenes)."""
+    if isinstance(drive, torch.nn.Module):
+        return policy_rollout(eng, carry, drive, steps)
+    return rollout(eng, carry, drive, steps)
+
+
+def lcp_residual(meta, F, b, mu, z):
+    """Per world, the boxed LCP's natural-map residual max_i |z_i -
+    proj_i(z_i - w_i)| with w = F F^T z - b (0 exactly at a solution: it
+    measures feasibility and complementarity at once), over 1 + max|b|."""
+    from nimblephysics_tpu_torch.batched.lcp import _Av, _const_bounds, _rows
+
+    isf, fidx = _rows(meta, F.device)
+    lo, hi = _const_bounds(meta, F.dtype, F.device)
+    y = z - (_Av(F, 0.0, z) - b)
+    bound = mu * torch.clamp(z[fidx], min=0.0)
+    proj = torch.where(isf, torch.minimum(torch.maximum(y, -bound), bound),
+                       torch.minimum(torch.maximum(y, lo), hi))
+    return (z - proj).abs().amax(dim=0) / (1.0 + b.abs().amax(dim=0))
+
+
+def unique_parts(meta, F, b, mu, z_k, z_p):
+    """What a kernel output z_k shares with its plain version z_p on an LCP
+    whose z is not unique (A = F F^T of rank r < n): the largest gap in
+    u = F^T z over 1 + max|F^T z_p|, and in the natural-map residual."""
+    u_k = torch.sum(F * z_k[:, None, :], dim=0)
+    u_p = torch.sum(F * z_p[:, None, :], dim=0)
+    du = float(((u_k - u_p).abs().amax(dim=0) / (1.0 + u_p.abs().amax(dim=0))).max())
+    dres = float((lcp_residual(meta, F, b, mu, z_k) - lcp_residual(meta, F, b, mu, z_p)).abs().max())
+    return du, dres
+
+
+def dropped_contact(meta, F, b, mu, z0, z_ref):
+    """The plain K1 and K1b outputs on the LCP with each world's most loaded
+    contact (by z_ref's normal rows; its normal and friction rows) zeroed:
+    what a kernel that skipped a row would give."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    keep = torch.ones_like(b)
+    k = torch.argmax(z_ref[0::3][: (meta.findex >= 0).sum() // 2], dim=0)
+    for i in range(3):
+        keep.scatter_(0, (3 * k + i)[None], 0.0)
+    Fd, bd = F * keep[:, None], b * keep
+    return (lcp_cuda.apgd_plain(meta, Fd, 0.0, bd, mu, z0),
+            lcp_cuda.seed_plain(meta, Fd, 0.0, bd, mu, z0))
+
+
+def unbounded_servo(meta, F, b, mu, z0, z_ref=None):
+    """The plain K1 and K1b outputs with the servo rows' bounds removed
+    (-inf, inf): what a kernel that ignored finite bounds would give."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    free = dataclasses.replace(meta, lo_const=np.full(meta.n, -np.inf),
+                               hi_const=np.full(meta.n, np.inf))
+    return (lcp_cuda.apgd_plain(free, F, 0.0, b, mu, z0),
+            lcp_cuda.seed_plain(free, F, 0.0, b, mu, z0))
+
+
+def phase14(dev, report):
+    """K1 and K1b on this slice's LCPs: jump_worm and catapult (warm and
+    cold) and each motor scene, against their plain versions, with the
+    dropped-contact (worm) and unbounded-servo faults; seeded random LCPs
+    on the same rows, held by u = F^T z and the residual."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    out = {}
+    for label, world, eng, (carry, drive) in slice_engines(dev):
+        q, v, z = advance(eng, carry, drive, 20 if label in REF_WORLDS else 5)
+        u = (eng.action_to_forces(drive(torch.cat([q, v]))).detach()
+             if isinstance(drive, torch.nn.Module) else drive)
+        meta, F, b, mu, zw = eng.lcp_blocks(eng.lcp_problem(q, v, u), z)[0][0]
+        fault = {"jump_worm": ("a dropped contact", dropped_contact),
+                 "servo": ("the servo rows unbounded", unbounded_servo)}.get(label)
+        out[label] = engine_lcp_check("phase 14", label, meta, F, b, mu, zw, report, fault)
+        if label == "servo":
+            hi = float(meta.hi_const[0])
+            z = lcp_cuda.apgd_cuda(meta, F.contiguous(), b.contiguous(), mu.contiguous(),
+                                   zw.contiguous(), pgs_sweeps=meta.seed_pgs_sweeps)
+            at_bound = float((z[0] >= hi * (1 - 1e-6)).double().mean())
+            print(f"phase 14 (servo): share of worlds at the bound {hi:.3e}: {at_bound:.4f}")
+            check(at_bound == 1.0, "the servo scene does not saturate its bound")
+        if meta.n > 1:
+            random_check(f"phase 14 ({label})", meta, F.shape[1], F.shape[2], dev, SEED + 141)
+    return out
+
+
+def random_check(label, meta, r, B, dev, seed):
+    """K1 and K1b on a seeded random LCP of meta's rows and rank r against
+    the plain versions in float32 and float64: z is shown (a rank-r
+    operator on n > r rows leaves z free along its null space, and the
+    polish drifts there in either precision), u = F^T z and the
+    natural-map residual are held to RAND_U_TOL and RAND_RES_TOL."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    Fr, br, mur, zr = random_lcp(meta, r, B, np.random.RandomState(seed), dev)
+    for key, sw in (("K1 ", 0), ("K1b", meta.seed_pgs_sweeps)):
+        m = dataclasses.replace(meta, seed_pgs_sweeps=sw)
+        zk = lcp_cuda.apgd_cuda(meta, Fr, br, mur, zr, pgs_sweeps=sw)
+        p32, p64 = (lcp_cuda.seed_plain(m, Fr.to(dt), 0.0, br.to(dt), mur.to(dt), zr.to(dt))
+                    for dt in (torch.float32, torch.float64))
+        du, dres = unique_parts(meta, Fr, br, mur, zk, p32)
+        print(f"{label}, random LCP n={meta.n} r={r}, {key}: z: kernel vs plain f32 "
+              f"{rel_err(zk, p32)[1]:.3e}, vs plain f64 {rel_err(zk.double(), p64)[1]:.3e}, "
+              f"plain f32 vs f64 {rel_err(p32.double(), p64)[1]:.3e} (shown); u = F^T z "
+              f"{du:.3e} (tol {RAND_U_TOL:g}); residual {dres:.3e} (tol {RAND_RES_TOL:g})")
+        check(du <= RAND_U_TOL, f"{label}: {key} u = F^T z disagrees with its plain version")
+        check(dres <= RAND_RES_TOL, f"{label}: {key} residual disagrees with its plain version")
+
+
+def _forbidden(*_, **__):
+    raise AssertionError("the plain seed ran on the card")
+
+
+def phase15(dev):
+    """The slice's rollouts at BATCH worlds: jump_worm and catapult (STEPS
+    warm-up and STEPS timed policy steps) and each motor scene (STEPS
+    steps), one K1b launch a step and never the plain seed; then the
+    worm's settling and the catapult arm's response to torque."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    out = {}
+    for label, world, eng, (carry, drive) in slice_engines(dev):
+        if label in REF_WORLDS:
+            carry = advance(eng, carry, drive, STEPS)  # warm-up
+        torch.cuda.synchronize()
+        lcp_cuda.apgd_seed.launches = 0
+        with mock.patch.object(lcp_cuda, "seed_plain", _forbidden), \
+                mock.patch.object(lcp_cuda, "apgd_plain", _forbidden):
+            t0 = time.perf_counter()
+            carry = advance(eng, carry, drive, STEPS)
+            torch.cuda.synchronize()
+            dt_s = time.perf_counter() - t0
+        launches = lcp_cuda.apgd_seed.launches
+        qf, vf, zf = carry
+        u = (eng.action_to_forces(drive(torch.cat([qf, vf]))).detach()
+             if isinstance(drive, torch.nn.Module) else drive)
+        per_step = count_launches(lambda: eng.step(qf, vf, u, z_warm=zf))
+        check(launches == STEPS, f"{label}: K1b launched {launches} times in {STEPS} steps")
+        check(all(bool(torch.isfinite(x).all()) for x in carry), f"{label}: state not finite")
+        extra = motor_check(label, eng, qf, vf) if label in MOTOR_SCENES else ""
+        print(f"phase 15 ({label}): {STEPS} steps x {BATCH} worlds: "
+              f"{dt_s / STEPS * 1e3:.3f} ms/step, {BATCH * STEPS / dt_s:.1f} env-steps/s; "
+              f"K1b launches {launches}; CUDA kernel launches per step {per_step}; LCP "
+              f"n={eng.num_rows} r={world.num_dofs}; worlds with impulses "
+              f"{int((zf.abs().amax(dim=0) > 0).sum())}/{BATCH}{extra}")
+        out[label] = dict(launches=launches, per_step=per_step, world=world, eng=eng,
+                          carry=carry, u=u, env_steps_s=BATCH * STEPS / dt_s)
+    settle_check(dev)
+    torque_check(dev)
+    return out
+
+
+def motor_check(label, eng, q, v):
+    """tests/test_motors.py's checks on a motor scene after STEPS steps."""
+    dt = eng.world.time_step
+    if label == "servo":
+        # Saturated from rest with no gravity: v = STEPS f dt / M, M = 1/3.
+        want = STEPS * 0.01 * dt * 3.0
+        err = float((v[0] - want).abs().max()) / want
+        check(err <= SERVO_REL, f"servo: v off its force-limited value by {err:.3e}")
+        return f"; servo v {float(v[0].mean()):.6e} (force-limited {want:.6e}), rel {err:.3e}"
+    if label == "mimic":
+        err = float((v[1] - 0.5 * v[0]).abs().max())
+        check(err <= MIMIC_ABS, f"mimic: |v1 - v0 / 2| {err:.3e}")
+        return f"; max|v1 - v0/2| {err:.3e} (limit {MIMIC_ABS:g})"
+    if label == "locked":
+        err = float(v.abs().max())
+        check(err <= LOCKED_ABS, f"locked: max|v| {err:.3e}")
+        return f"; max|v| {err:.3e} (limit {LOCKED_ABS:g})"
+    gap, rot = constraint_drift(eng, q)
+    limit = BALL_DRIFT if label == "ball" else WELD_DRIFT
+    check(float(gap.max()) <= limit and float(rot.max()) <= limit,
+          f"{label}: the constraint drifted ({float(gap.max()):.3e}, {float(rot.max()):.3e})")
+    return (f"; anchor gap max {float(gap.max()):.3e}, rotation error max "
+            f"{float(rot.max()):.3e} (limit {limit:g}); max|v| {float(v.abs().max()):.3e}")
+
+
+def settle_check(dev):
+    """tests/test_reference_workloads.py::test_settles_on_floor on the card:
+    SETTLE_WORLDS worms from the reference start, no torque, 600 steps:
+    the root rests on the floor (-0.56 < y < 0.1), |v| < 1."""
+    world, q0, v0, eng = make_ref_engine(dev, "jump_worm")
+    (q, v, z), _ = ref_start(eng, q0, v0, np.random.RandomState(SEED + 150), dev, SETTLE_WORLDS)
+    q, v, z = rollout(eng, (q, v, z), torch.zeros_like(q), SETTLE_STEPS)
+    y, vmax = q[1], float(v.abs().max())
+    print(f"phase 15 (jump_worm settling): {SETTLE_WORLDS} worlds x {SETTLE_STEPS} steps, "
+          f"no torque: root y in [{float(y.min()):.4f}, {float(y.max()):.4f}] (bounds "
+          f"-0.56, 0.1), max|v| {vmax:.3e} (bound 1)")
+    check(bool(torch.isfinite(q).all()) and float(y.min()) > -0.56 and float(y.max()) < 0.1
+          and vmax < 1.0, "jump_worm: the worm does not rest on the floor")
+
+
+def torque_check(dev):
+    """tests/test_reference_workloads.py::test_arm_torque_moves_projectile
+    on the card, cut to TORQUE_STEPS steps: the catapult arm under -60 N m
+    on its three joints ends more than 0.05 rad from the passive arm."""
+    world, q0, v0, eng = make_ref_engine(dev, "catapult")
+    (q, v, z), _ = ref_start(eng, q0, v0, np.random.RandomState(SEED + 151), dev, SETTLE_WORLDS)
+    torque = torch.zeros_like(q)
+    torque[2:] = -60.0
+    passive = rollout(eng, (q, v, z), torch.zeros_like(q), TORQUE_STEPS)[0]
+    driven = rollout(eng, (q, v, z), torque, TORQUE_STEPS)[0]
+    moved = float((driven[2:5] - passive[2:5]).abs().amax(dim=0).min())
+    print(f"phase 15 (catapult torque): {SETTLE_WORLDS} worlds x {TORQUE_STEPS} steps: arm "
+          f"joints, torque vs passive, least max|dq| over worlds {moved:.4f} (bound 0.05)")
+    check(bool(torch.isfinite(driven).all()) and moved > 0.05,
+          "catapult: the arm does not respond to torque")
+
+
+def phase16(dev):
+    """train_step_batched on jump_worm and catapult at BATCH worlds, horizon
+    REF_HORIZON: one warm-up call and one timed call each."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+    from nimblephysics_tpu_torch.parallel import train_step_batched
+
+    out = {}
+    for i, name in enumerate(REF_WORLDS):
+        world, q0, v0, eng = make_ref_engine(dev, name)
+        (q, v, _), policy = ref_start(eng, q0, v0, np.random.RandomState(SEED + 160 + i), dev)
+        states = torch.cat([q, v])
+        train = train_step_batched(eng, policy, REF_HORIZON, LEARNING_RATE)
+        first = train(states)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        lcp_cuda.apgd_seed.launches = 0
+        t0 = time.perf_counter()
+        res = train(states)
+        torch.cuda.synchronize()
+        dt_s = time.perf_counter() - t0
+        launches = lcp_cuda.apgd_seed.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        g = policy_grad(policy)
+        print(f"phase 16 ({name}): {BATCH} worlds x horizon {REF_HORIZON}, hidden "
+              f"{HIDDEN}: {dt_s:.3f} s/training step, {BATCH * REF_HORIZON / dt_s:.1f} "
+              f"fwd+bwd env-steps/s; K1b launches {launches}; peak memory "
+              f"{peak / 2**20:.1f} MiB; loss {float(first.loss):.6f} -> "
+              f"{float(res.loss):.6f}; |grad| {float(g.norm()):.4e}")
+        check(launches == REF_HORIZON,
+              f"{name}: K1b launched {launches} times in a {REF_HORIZON}-step training step")
+        check(bool(torch.isfinite(res.loss)) and bool(torch.isfinite(g).all()),
+              f"{name}: training loss or gradient not finite")
+        out[name] = dict(launches=launches, env_steps_s=BATCH * REF_HORIZON / dt_s,
+                         peak_mib=peak / 2**20)
+    return out
+
+
+def euler_chain_world():
+    """tests/test_batched.py::test_batched_euler_joints_match's world: an
+    euler_free base and an euler tip, no shapes."""
+    from nimblephysics_tpu_torch.dynamics import Skeleton
+    from nimblephysics_tpu_torch.simulation import World
+
+    sk = Skeleton("euler_chain")
+    base = sk.add_joint_and_body("eulerfree", name="base", euler_order="zyx", mass=1.2,
+                                 inertia=np.eye(3) * 0.02)
+    sk.add_joint_and_body("euler", parent=base, name="tip", euler_order="xyz",
+                          T_pj=_translation((0.1, 0.0, -0.2)), mass=0.7,
+                          inertia=np.eye(3) * 0.01)
+    world = World(gravity=(0.0, 0.0, -9.81), time_step=0.001)
+    world.add_skeleton(sk)
+    return world
+
+
+def shapes_world():
+    """Five free bodies with no gravity, every pair colliding: two spheres
+    (radii 0.1, 0.12), a box (0.2 x 0.3 x 0.4) and two capsules ((0.05,
+    0.3), (0.04, 0.2)): sphere-sphere, sphere-box, capsule-sphere,
+    capsule-capsule and capsule-box slots (tests/test_torch_collision.py's
+    world)."""
+    from nimblephysics_tpu_torch.dynamics import FREE, ShapeSpec, Skeleton
+    from nimblephysics_tpu_torch.simulation import World
+
+    world = World(gravity=(0.0, 0.0, 0.0))
+    shapes = [("sphere", [0.1]), ("sphere", [0.12]), ("box", [0.2, 0.3, 0.4]),
+              ("capsule", [0.05, 0.3]), ("capsule", [0.04, 0.2])]
+    for i, (kind, size) in enumerate(shapes):
+        sk = Skeleton(f"body{i}")
+        sk.add_joint_and_body(FREE, name=f"body{i}", shapes=(ShapeSpec(kind, np.array(size)),))
+        world.add_skeleton(sk)
+    return world
+
+
+def shapes_start(rng, worlds):
+    """The five bodies of shapes_world in a row along x, each neighbour
+    ~2 mm into the next (sphere-sphere, sphere-box, capsule-box and
+    capsule-capsule slots touch; the capsule-sphere and other slots stay
+    apart), jittered per world by 1 mm and 0.05 rad, moving together at
+    ~0.05 m/s: (30, worlds) q and v as numpy."""
+    x = np.array([0.0, 0.218, 0.436, 0.584, 0.672])
+    q = np.zeros((30, worlds))
+    q[0::6] = q[1::6] = q[2::6] = 0.05 * rng.randn(5, worlds)
+    q[3::6] = x[:, None] + 1e-3 * rng.randn(5, worlds)
+    v = np.zeros_like(q)
+    v[3::6] = -0.05 * np.sign(x - x.mean())[:, None] + 0.01 * rng.randn(5, worlds)
+    return q, v
+
+
+def phase17(dev, runs):
+    """The card against the CPU: one step of jump_worm and of each motor
+    scene from phase 15's final state, and of the five-shape world; the
+    no-row worlds with no kernel launch; a remat_step VJP through the
+    servo scene."""
+    from nimblephysics_tpu_torch.batched import BatchedEngine
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    for label in ("jump_worm",) + MOTOR_SCENES:
+        run = runs[label]
+        qf, vf, zf = run["carry"]
+        c = card_vs_cpu(run["world"], (run["eng"], qf, vf, zf, run["u"]), CHECK_WORLDS)
+        slice_card_check(label, c)
+    world = shapes_world()
+    eng = BatchedEngine(world, device=dev)
+    q, v = shapes_start(np.random.RandomState(SEED + 170), CHECK_WORLDS)
+    q, v = _on(dev, q), _on(dev, v)
+    c = card_vs_cpu(world, (eng, q, v, torch.zeros(eng.num_rows, CHECK_WORLDS, device=dev),
+                            torch.zeros_like(q)), CHECK_WORLDS)
+    check(float(eng.step(q, v, torch.zeros_like(q)).impulses.abs().max()) > 0,
+          "the five-shape world has no contact")
+    slice_card_check("shapes", c)
+    from nimblephysics_tpu_torch.models import inverted_double_pendulum
+
+    for label, world in (("inverted_double_pendulum", inverted_double_pendulum()[0]),
+                         ("euler_chain", euler_chain_world())):
+        eng = BatchedEngine(world, device=dev)
+        rng = np.random.RandomState(SEED + 171)
+        x = [_on(dev, s * rng.randn(world.num_dofs, CHECK_WORLDS)) for s in (0.4, 0.4, 0.2)]
+        before = lcp_cuda.apgd_seed.launches
+        per_step = count_launches(lambda: eng.step(*x))
+        g = eng.step(*x)
+        launched = lcp_cuda.apgd_seed.launches - before
+        c64 = BatchedEngine(world, device="cpu", dtype=torch.float64).step(
+            *(t.double().cpu() for t in x))
+        dq = float(((g.q.double().cpu() - c64.q).abs() / (1 + c64.q.abs())).max())
+        dv = float(((g.v.double().cpu() - c64.v).abs().amax(dim=0)
+                    / (1 + c64.v.abs().amax(dim=0))).max())
+        print(f"phase 17 ({label}): no rows: impulses {tuple(g.impulses.shape)}, seed "
+              f"kernel launches {launched}, CUDA kernel launches per step {per_step}; card "
+              f"f32 vs CPU f64: max|dq|/(1+|q|) {dq:.3e}, max|dv|/(1+max|v|) {dv:.3e} "
+              f"(bounds {NOROW_DQ:g}, {NOROW_DV:g})")
+        check(launched == 0 and g.impulses.shape[0] == 0, f"{label}: a no-row world solved an LCP")
+        check(dq <= NOROW_DQ and dv <= NOROW_DV, f"{label}: card step far from the CPU f64 path")
+    servo_vjp(dev)
+
+
+def slice_card_check(label, c):
+    share = float((c["dv64"] <= BOX_DV_CLOSE).double().mean())
+    print(f"phase 17 ({label}): {CHECK_WORLDS} worlds: card vs CPU f32 with the card's "
+          f"seed: max|dz|/(1+max|z|) {c['dz32']:.3e} (bound {SLICE_DZ_SAME:g}), "
+          f"max|dv|/(1+max|v|) {c['dv32']:.3e} (bound {SLICE_DV_SAME:g}); card vs CPU f64: "
+          f"max|dq|/(1+|q|) {c['dq_rel']:.3e} (bound {DQ_TOL:g}), max|dv| "
+          f"{float(c['dv64'].max()):.3e} (bound {DV_TOL:g}), share with |dv| <= "
+          f"{BOX_DV_CLOSE:g} {share:.4f}; CPU f32 vs CPU f64: "
+          f"{int((c['dv_cpu'] > DV_TOL).sum())} worlds beyond {DV_TOL:g}, max|dv| "
+          f"{float(c['dv_cpu'].max()):.3e}")
+    check(c["dz32"] <= SLICE_DZ_SAME, f"{label}: card impulses disagree with the CPU's float32 path")
+    check(c["dv32"] <= SLICE_DV_SAME, f"{label}: card v disagrees with the CPU's float32 path")
+    check(c["dq_rel"] <= DQ_TOL, f"{label}: card q disagrees with the CPU f64 path")
+    check(float(c["dv64"].max()) <= DV_TOL, f"{label}: card v far from the CPU f64 path")
+
+
+def servo_vjp(dev):
+    """A VJP through VJP_STEPS remat_steps of the servo scene (saturated),
+    card f32 against the CPU's float64 path."""
+    from nimblephysics_tpu_torch.batched import BatchedEngine
+
+    grads = {}
+    for label, d, dtype in (("card", dev, torch.float32), ("cpu", torch.device("cpu"), torch.float64)):
+        world = motor_scene("servo")[0]
+        eng = BatchedEngine(world, device=d, dtype=dtype)
+        rng = np.random.RandomState(SEED + 172)
+        (q, v, _), u = motor_start(eng, "servo", rng, d, VJP_WORLDS)
+        wq, wv = (torch.as_tensor(rng.randn(*q.shape), dtype=dtype, device=d) for _ in range(2))
+        x = [q.clone().requires_grad_(), v.clone().requires_grad_()]
+        qq, vv, z = x[0], x[1], None
+        for _ in range(VJP_STEPS):
+            r = eng.remat_step(qq, vv, u, z_warm=z)
+            qq, vv, z = r.q, r.v, r.impulses
+        g = torch.autograd.grad((wq * qq).sum() + (wv * vv).sum(), x)
+        grads[label] = torch.cat([t.reshape(-1) for t in g]).double().cpu()
+    g, c = grads["card"], grads["cpu"]
+    cos = cosine(g, c)
+    rel = float((g - c).norm() / c.norm())
+    print(f"phase 17 (servo VJP): {VJP_WORLDS} worlds x {VJP_STEPS} remat_steps: card f32 "
+          f"vs CPU f64: cosine {cos:.8f} (bound {VJP_COS:g}), |dg|/|g| {rel:.3e} (bound "
+          f"{SERVO_VJP_REL:g}), |g| {float(c.norm()):.4e}")
+    check(bool(torch.isfinite(g).all()), "servo VJP not finite")
+    check(cos >= VJP_COS and rel <= SERVO_VJP_REL, "card servo VJP far from the CPU's")
+
+
+def slice_kernel_entries(k14, runs):
+    """The kernels line's entries for K1b on this slice's LCPs: launches
+    from the phase-15 rollouts, phase 14's numbers at each LCP."""
+    out = []
+    for label, row in k14.items():
+        k = row["k1b"]
+        out.append({
+            "name": f"apgd_seed_pgs/{label}",
+            "route": "cuda",
+            "source": "nimblephysics_tpu_torch/csrc/apgd_seed.cu",
+            "replaces": "nimblephysics_tpu/batched/lcp_pallas.py:118",
+            "launches": runs[label]["launches"],
+            "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"],
+            "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"],
+            "library_ms": None,
+        })
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1085,6 +1722,12 @@ def main() -> int:
     isl = phase12(dev)
     phase13(dev)
 
+    # 14-17. The reference suite's worlds, the motor scenes and the rest.
+    k14 = phase14(dev, report)
+    runs = phase15(dev)
+    phase16(dev)
+    phase17(dev, runs)
+
     kernel = {
         "name": "apgd_seed",
         "route": "cuda",
@@ -1098,7 +1741,8 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
     }
-    print(json.dumps({"kernels": [kernel, k1b, *box_kernel_entries(k9, legs, isl)]}))
+    print(json.dumps({"kernels": [kernel, k1b, *box_kernel_entries(k9, legs, isl),
+                                  *slice_kernel_entries(k14, runs)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

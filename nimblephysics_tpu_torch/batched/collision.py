@@ -1,12 +1,17 @@
 """Batched narrowphase: the collider's static slot plan evaluated with the
 world batch in the trailing axis.
 
-Counterpart of nimblephysics_tpu/batched/collision.py for the pair kinds
-of the half-cheetah and box-stack worlds: sphere-plane, capsule-plane,
-box-plane and box-box (formula parity with sphere_plane_b,
-capsule_plane_b, box_plane_b and box_box_b there). All slots of one kind
-are evaluated together as one batched op. Per-contact outputs: point
-(C, 3, B), normal (C, 3, B), depth (C, B), in slot order.
+Counterpart of nimblephysics_tpu/batched/collision.py for every pair kind
+of the slot plan (formula parity with its sphere_plane_b, sphere_sphere_b,
+sphere_box_b, capsule_plane_b, capsule_sphere_b, capsule_capsule_b,
+box_plane_b and box_box_b). capsule_box follows the single-world
+narrowphase.capsule_box of the JAX package: the plan gives the pair 3
+slots (the two end spheres and a flank point), where that package's
+batched capsule_box_b returns only the 2 end spheres. All slots of one
+kind are evaluated together as one batched op. Per-contact outputs:
+point (C, 3, B), normal (C, 3, B), depth (C, B), in slot order. Every
+constant a kind reads is built with the plan (BatchedCollider._consts),
+so a call copies nothing from the host.
 
 box_box_b is the clipped separating-axis manifold (DARTCollide.cpp:1452
 dBoxBox re-designed): 15 axes scored, the best face of either box clipped
@@ -18,6 +23,8 @@ package's.
 
 from __future__ import annotations
 
+import functools
+from types import SimpleNamespace
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -26,8 +33,30 @@ import torch
 from nimblephysics_tpu_torch.batched import linalg as bl
 from nimblephysics_tpu_torch.collision.collider import Collider, _sphere_radius
 
-_NATIVE = ("sphere_plane", "capsule_plane", "box_plane", "box_box")
 _PLANE_KINDS = ("sphere_plane", "capsule_plane", "box_plane")
+_EPS = 1e-12
+_BOX_SIGNS = np.array(
+    [[sx, sy, sz] for sx in (-1.0, 1.0) for sy in (-1.0, 1.0) for sz in (-1.0, 1.0)]
+)
+_RECT_SIGNS = [(1.0, 1.0), (1.0, -1.0), (-1.0, -1.0), (-1.0, 1.0)]
+# box_box's axis preference: the 9 edge-cross axes pay 1e-4 against the
+# 6 face axes.
+_AXIS_PENALTY = [0.0] * 6 + [1e-4] * 9
+
+
+@functools.lru_cache(maxsize=16)
+def _statics(dtype, device) -> SimpleNamespace:
+    """The constant tensors of the pair kinds, built once per dtype and
+    device: the 8 corner signs of a box (8, 3), the 4 rectangle corner
+    signs of the face manifold (4, 2, 1), box_box's axis penalties
+    (15, 1) and the unit z fallback normal (3, 1)."""
+    def t(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.float64), dtype=dtype,
+                               device=device)
+
+    return SimpleNamespace(box_signs=t(_BOX_SIGNS), rect_signs=t(_RECT_SIGNS)[:, :, None],
+                           axis_penalty=t(_AXIS_PENALTY)[:, None],
+                           ez=t([0.0, 0.0, 1.0])[:, None])
 
 
 def sphere_plane_b(center, radius, n_w, d_w):
@@ -58,23 +87,175 @@ def capsule_plane_b(R_cap, p_cap, radius, height, n_w, d_w):
     )
 
 
-_BOX_SIGNS = np.array(
-    [[sx, sy, sz] for sx in (-1.0, 1.0) for sy in (-1.0, 1.0) for sz in (-1.0, 1.0)]
-)
-
-
 def box_plane_b(R_box, p_box, half, n_w, d_w):
     """The 8 corners of boxes against planes: R_box (S, 3, 3, B), p_box
     (S, 3, B), half sizes (S, 3, 1), plane normal (S, 3, B) and offset
     (S, B) -> contacts ordered by corner per slot: (8S, 3, B), (8S, B)."""
     S, B = p_box.shape[0], p_box.shape[-1]
-    signs = torch.as_tensor(_BOX_SIGNS, dtype=p_box.dtype, device=p_box.device)
+    signs = _statics(p_box.dtype, p_box.device).box_signs
     local = signs[None, :, :, None] * half[:, None]  # (S, 8, 3, 1)
     corner = torch.einsum("sijb,skjb->skib", R_box, local) + p_box[:, None]
     depth = -(torch.sum(corner * n_w[:, None], dim=2) - d_w[:, None])  # (S, 8, B)
     point = corner + 0.5 * depth[:, :, None] * n_w[:, None]
     normal = n_w[:, None].expand(S, 8, 3, B)
     return point.reshape(8 * S, 3, B), normal.reshape(8 * S, 3, B), depth.reshape(8 * S, B)
+
+
+def _to_flat(x):
+    """A kind's per-slot input, (S, ..., B or 1), -> (..., S B): the slots
+    flattened into the batch axis."""
+    S = x.shape[0]
+    return x.movedim(0, -2).reshape(*x.shape[1:-1], S * x.shape[-1])
+
+
+def _per_slot(flat_fn, B, *args):
+    """Run flat_fn on the slots flattened into the batch axis: args (S,
+    ..., B or 1), broadcast to B, -> its (m, 3, S B), (m, 3, S B), (m, S B)
+    outputs as (m S, 3, B), (m S, 3, B), (m S, B), in slot order."""
+    S = args[0].shape[0]
+    flat = [_to_flat(x.expand(*x.shape[:-1], B)) for x in args]
+    out = flat_fn(*flat)
+    return tuple(
+        x.reshape(*x.shape[:-1], S, B).movedim(-2, 0).reshape(S * x.shape[0], *x.shape[1:-1], B)
+        for x in out
+    )
+
+
+def _safe_normalize_b(v, fallback):
+    """(3, N) normalized, with fallback (3, 1) where |v|^2 < 1e-12 (no
+    division by zero in either the value or its gradient)."""
+    n2 = torch.sum(v * v, dim=0, keepdim=True)
+    small = n2 < _EPS
+    unit = v / torch.sqrt(torch.where(small, torch.ones_like(n2), n2))
+    return torch.where(small, fallback, unit)
+
+
+def _sphere_sphere_flat(c_a, r_a, c_b, r_b):
+    """Spheres (centers (3, N), radii (N,)): 1 contact, normal from B to A."""
+    d = c_a - c_b
+    d2 = torch.sum(d * d, dim=0)
+    small = d2 < _EPS
+    dist = torch.where(small, torch.zeros_like(d2),
+                       torch.sqrt(torch.where(small, torch.ones_like(d2), d2)))
+    n = _safe_normalize_b(d, _statics(d.dtype, d.device).ez)
+    depth = (r_a + r_b) - dist
+    point = c_b + n * (r_b - 0.5 * depth)
+    return point[None], n[None], depth[None]
+
+
+def _sphere_box_flat(center, radius, R_box, p_box, half):
+    """Sphere (A) against box (B, half sizes (3, N)): the closest point
+    in the box frame, or, with the center inside, out through the nearest
+    face. 1 contact."""
+    ez = _statics(center.dtype, center.device).ez
+    c_local = bl.mtv(R_box, center - p_box)
+    clamped = torch.minimum(torch.maximum(c_local, -half), half)
+    delta = c_local - clamped
+    d2 = torch.sum(delta * delta, dim=0)
+    outside = d2 > _EPS
+    n_out = _safe_normalize_b(delta, ez)
+    dist_out = torch.where(outside, torch.sqrt(torch.where(outside, d2, torch.ones_like(d2))),
+                           torch.zeros_like(d2))
+    face_dist = half - torch.abs(c_local)
+    onehot = _one_hot_b(torch.argmin(face_dist, dim=0), 3, center.dtype)
+    n_in = onehot * torch.sign(torch.sum(c_local * onehot, dim=0) + _EPS)
+    dist_in = -torch.amin(face_dist, dim=0)
+    n_local = torch.where(outside, n_out, n_in)
+    depth = radius - torch.where(outside, dist_out, dist_in)
+    n_world = bl.mv(R_box, n_local)
+    surf_local = torch.where(outside, clamped, c_local - n_local * dist_in)
+    point = 0.5 * (bl.mv(R_box, surf_local) + p_box + (center - n_world * radius))
+    return point[None], n_world[None], depth[None]
+
+
+def _segment_closest_b(p, a, b):
+    ab = b - a
+    denom = torch.clamp(torch.sum(ab * ab, dim=0), min=_EPS)
+    t = torch.clamp(bl.dot(p - a, ab) / denom, 0.0, 1.0)
+    return a + t * ab
+
+
+def _segment_ends(R, p, height):
+    """A capsule's axis segment (local z): its -h/2 and +h/2 ends."""
+    half = R[:, 2] * (height / 2.0)
+    return p - half, p + half
+
+
+def _capsule_sphere_flat(R_cap, p_cap, r_c, h, c_sphere, r_s):
+    a, b = _segment_ends(R_cap, p_cap, h)
+    return _sphere_sphere_flat(_segment_closest_b(c_sphere, a, b), r_c, c_sphere, r_s)
+
+
+def _capsule_capsule_flat(R_a, p_a, r_a, h_a, R_b, p_b, r_b, h_b):
+    """The closest points of the two axis segments as spheres: 1 contact."""
+    a0, a1 = _segment_ends(R_a, p_a, h_a)
+    b0, b1 = _segment_ends(R_b, p_b, h_b)
+    d1, d2, r = a1 - a0, b1 - b0, a0 - b0
+    a = torch.sum(d1 * d1, dim=0)
+    e = torch.sum(d2 * d2, dim=0)
+    f = torch.sum(d2 * r, dim=0)
+    c = torch.sum(d1 * r, dim=0)
+    b = torch.sum(d1 * d2, dim=0)
+    denom = torch.clamp(a * e - b * b, min=_EPS)
+    s = torch.clamp((b * f - c * e) / denom, 0.0, 1.0)
+    t = torch.clamp((b * s + f) / torch.clamp(e, min=_EPS), 0.0, 1.0)
+    s = torch.clamp((b * t - c) / torch.clamp(a, min=_EPS), 0.0, 1.0)
+    return _sphere_sphere_flat(a0 + s * d1, r_a, b0 + t * d2, r_b)
+
+
+def _capsule_box_flat(R_cap, p_cap, radius, height, R_box, p_box, half):
+    """Capsule (A) against box (B): 3 contacts, the end spheres at -h/2
+    and +h/2 and a flank point, the segment point closest to the box after
+    8 rounds of alternating projection (segment -> box -> segment),
+    dropped (depth -1) within 5% of the half height of an end
+    (narrowphase.capsule_box of the JAX package)."""
+    a, b = _segment_ends(R_cap, p_cap, height)
+    outs = [_sphere_box_flat(end, radius, R_box, p_box, half) for end in (a, b)]
+    p_seg = p_cap
+    for _ in range(8):
+        local = bl.mtv(R_box, p_seg - p_box)
+        on_box = bl.mv(R_box, torch.minimum(torch.maximum(local, -half), half)) + p_box
+        p_seg = _segment_closest_b(on_box, a, b)
+    pt, nrm, dep = _sphere_box_flat(p_seg, radius, R_box, p_box, half)
+    t_end = torch.minimum(torch.sqrt(torch.sum((p_seg - a) ** 2, dim=0)),
+                          torch.sqrt(torch.sum((p_seg - b) ** 2, dim=0)))
+    dup = t_end < 0.05 * (height / 2.0) + 1e-9
+    outs.append((pt, nrm, torch.where(dup, -torch.ones_like(dep), dep)))
+    return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
+
+
+def sphere_sphere_b(c_a, r_a, c_b, r_b):
+    """Sphere pairs: centers (S, 3, B), radii (S, 1, 1) -> (S, 3, B),
+    (S, 3, B), (S, B)."""
+    return _per_slot(_sphere_sphere_flat, c_a.shape[-1], c_a, r_a[:, 0], c_b, r_b[:, 0])
+
+
+def sphere_box_b(center, radius, R_box, p_box, half):
+    """Sphere-box pairs: centers (S, 3, B), radii (S, 1, 1), box rotations
+    (S, 3, 3, B), positions (S, 3, B), half sizes (S, 3, 1) -> 1 contact
+    a pair."""
+    return _per_slot(_sphere_box_flat, center.shape[-1], center, radius[:, 0],
+                     R_box, p_box, half)
+
+
+def capsule_sphere_b(R_cap, p_cap, r_c, h, c_sphere, r_s):
+    """Capsule-sphere pairs (capsule radius and height (S, 1, 1)): 1 contact
+    a pair."""
+    return _per_slot(_capsule_sphere_flat, p_cap.shape[-1], R_cap, p_cap, r_c[:, 0],
+                     h[:, 0], c_sphere, r_s[:, 0])
+
+
+def capsule_capsule_b(R_a, p_a, r_a, h_a, R_b, p_b, r_b, h_b):
+    """Capsule pairs: 1 contact a pair."""
+    return _per_slot(_capsule_capsule_flat, p_a.shape[-1], R_a, p_a, r_a[:, 0],
+                     h_a[:, 0], R_b, p_b, r_b[:, 0], h_b[:, 0])
+
+
+def capsule_box_b(R_cap, p_cap, radius, height, R_box, p_box, half):
+    """Capsule-box pairs: 3 contacts a pair, ordered [-h/2 end, +h/2 end,
+    flank]."""
+    return _per_slot(_capsule_box_flat, p_cap.shape[-1], R_cap, p_cap, radius[:, 0],
+                     height[:, 0], R_box, p_box, half)
 
 
 def _one_hot_b(idx, n, dtype):
@@ -118,17 +299,14 @@ def _box_face_manifold_b(R_r, p_r, h_r, R_i, p_i, h_i, face_idx, flip_normal):
     hi_u = torch.sum(h_i * ei_u, dim=0)
     hi_v = torch.sum(h_i * ei_v, dim=0)
 
-    cs = [(1.0, 1.0), (1.0, -1.0), (-1.0, -1.0), (-1.0, 1.0)]
     corners3d = torch.stack(
-        [inc_center + su * hi_u * iu + sv * hi_v * iv for su, sv in cs]
+        [inc_center + su * hi_u * iu + sv * hi_v * iv for su, sv in _RECT_SIGNS]
     )  # (4, 3, N)
     rel = corners3d - face_origin[None]
     quad = torch.stack(
         [torch.sum(rel * u[None], dim=1), torch.sum(rel * v[None], dim=1)], dim=1
     )  # (4, 2, N)
-    rect = torch.as_tensor(cs, dtype=dtype, device=p_r.device)[:, :, None] * (
-        torch.stack([h_u, h_v])[None]
-    )  # (4, 2, N)
+    rect = _statics(dtype, p_r.device).rect_signs * torch.stack([h_u, h_v])[None]  # (4, 2, N)
 
     # (a) incident corners inside the rect.
     in_rect = (torch.abs(quad[:, 0]) <= h_u[None] + 1e-9) & (
@@ -226,16 +404,14 @@ def _box_box_flat(R_a, p_a, h_a, R_b, p_b, h_b):
     absC = torch.abs(C) + 1e-9
     t = bl.mtv(R_a, p_b - p_a)
 
-    seps, world_axes, penalties = [], [], []
+    seps, world_axes = [], []
     for i in range(3):  # face axes of A
         seps.append(torch.abs(t[i]) - (h_a[i] + torch.sum(absC[i] * h_b, dim=0)))
         world_axes.append(R_a[:, i] * _sign(t[i]))
-        penalties.append(0.0)
     tb = bl.mtv(C, t)  # the centre offset in B's frame
     for j in range(3):  # face axes of B
         seps.append(torch.abs(tb[j]) - (h_b[j] + torch.sum(absC[:, j] * h_a, dim=0)))
         world_axes.append(R_b[:, j] * _sign(tb[j]))
-        penalties.append(0.0)
     for i in range(3):  # edge-cross axes a_i x b_j, double-where at parallel edges
         for j in range(3):
             axis = bl.cross(R_a[:, i], R_b[:, j])
@@ -252,11 +428,10 @@ def _box_box_flat(R_a, p_a, h_a, R_b, p_b, h_b):
             sep = torch.where(norm < 1e-6, torch.full_like(sep, float("-inf")), sep)
             world_axes.append(u * _sign(dist))
             seps.append(sep)
-            penalties.append(1e-4)
 
     seps_arr = torch.stack(seps)  # (15, N)
     axes_arr = torch.stack(world_axes)  # (15, 3, N)
-    score = seps_arr - torch.as_tensor(penalties, dtype=dtype, device=p_a.device)[:, None]
+    score = seps_arr - _statics(dtype, p_a.device).axis_penalty
     best = torch.argmax(score, dim=0)
     separated = torch.amax(seps_arr, dim=0) >= 0.0
 
@@ -307,17 +482,13 @@ class BatchedCollider:
     def __init__(self, collider: Collider):
         self.collider = collider
         self.slots = collider.slots
-        for slot in self.slots:
-            if slot.kind not in _NATIVE:
-                raise NotImplementedError(
-                    f"batched collision kind {slot.kind!r} comes with the "
-                    "rest of the batched engine (ROADMAP queue 1 item 9)"
-                )
         n_all = sum(s.n_slots for s in self.slots)
         if collider.num_contacts != n_all:
             raise NotImplementedError(
-                "World.max_contacts below the slot count is not supported "
-                "by the batched engine"
+                "World.max_contacts below the slot count: the JAX batched "
+                "collider caps num_contacts but returns every slot; the port "
+                "waits for a reference test that pins its meaning (ROADMAP "
+                "queue 3, known differences)"
             )
         ba, bb, mu, e = [], [], [], []
         for slot in self.slots:
@@ -351,6 +522,7 @@ class BatchedCollider:
         def t(x):
             return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
+        _statics(dtype, torch.device(device))  # the kinds' shared constants
         out = {"inv_order": torch.as_tensor(self._inv_order, device=device)}
         for kind, idx in self._groups.items():
             slots = [self.slots[i] for i in idx]
@@ -371,14 +543,16 @@ class BatchedCollider:
                 n_local = plane[:, :3] / np.linalg.norm(plane[:, :3], axis=1)[:, None]
                 d_local = plane[:, 3] if plane.shape[1] > 3 else np.zeros(len(slots))
                 c.update(n_local=t(n_local)[..., None], d_local=t(d_local)[:, None])
-            if kind in ("sphere_plane", "capsule_plane"):
-                c["radius"] = t([_sphere_radius(s.shape_a) for s in slots])[:, None, None]
-            if kind == "capsule_plane":
-                c["height"] = t([float(s.shape_a.size[1]) for s in slots])[:, None, None]
-            if kind in ("box_plane", "box_box"):
-                c["half_a"] = t([np.asarray(s.shape_a.size) / 2.0 for s in slots])[..., None]
-            if kind == "box_box":
-                c["half_b"] = t([np.asarray(s.shape_b.size) / 2.0 for s in slots])[..., None]
+            kind_a, kind_b = kind.split("_")
+            for side, shape_kind in (("a", kind_a), ("b", kind_b)):
+                shapes = [getattr(s, f"shape_{side}") for s in slots]
+                if shape_kind == "sphere":
+                    c[f"radius_{side}"] = t([_sphere_radius(x) for x in shapes])[:, None, None]
+                elif shape_kind == "capsule":
+                    c[f"radius_{side}"] = t([float(x.size[0]) for x in shapes])[:, None, None]
+                    c[f"height_{side}"] = t([float(x.size[1]) for x in shapes])[:, None, None]
+                elif shape_kind == "box":
+                    c[f"half_{side}"] = t([np.asarray(x.size) / 2.0 for x in shapes])[..., None]
             out[kind] = c
         self._tensors[key] = out
         return out
@@ -408,15 +582,28 @@ class BatchedCollider:
             Rb, pb = self._shape_T(R_wb, p_wb, c["body_b"], c["Rb_off"], c["pb_off"])
             if kind == "box_box":
                 out = box_box_b(Ra, pa, c["half_a"], Rb, pb, c["half_b"])
+            elif kind == "sphere_sphere":
+                out = sphere_sphere_b(pa, c["radius_a"], pb, c["radius_b"])
+            elif kind == "sphere_box":
+                out = sphere_box_b(pa, c["radius_a"], Rb, pb, c["half_b"])
+            elif kind == "capsule_sphere":
+                out = capsule_sphere_b(Ra, pa, c["radius_a"], c["height_a"], pb,
+                                       c["radius_b"])
+            elif kind == "capsule_capsule":
+                out = capsule_capsule_b(Ra, pa, c["radius_a"], c["height_a"], Rb, pb,
+                                        c["radius_b"], c["height_b"])
+            elif kind == "capsule_box":
+                out = capsule_box_b(Ra, pa, c["radius_a"], c["height_a"], Rb, pb,
+                                    c["half_b"])
             else:
                 n_w = torch.einsum("sijb,sjb->sib", Rb, c["n_local"])
                 d_w = c["d_local"] + torch.sum(n_w * pb, dim=1)
                 if kind == "capsule_plane":
-                    out = capsule_plane_b(Ra, pa, c["radius"], c["height"], n_w, d_w)
+                    out = capsule_plane_b(Ra, pa, c["radius_a"], c["height_a"], n_w, d_w)
                 elif kind == "box_plane":
                     out = box_plane_b(Ra, pa, c["half_a"], n_w, d_w)
                 else:
-                    out = sphere_plane_b(pa, c["radius"], n_w, d_w)
+                    out = sphere_plane_b(pa, c["radius_a"], n_w, d_w)
             pts.append(out[0])
             nrms.append(out[1])
             deps.append(out[2])

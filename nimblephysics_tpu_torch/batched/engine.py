@@ -10,11 +10,15 @@ autograd and stop where the JAX package's do (batched/lcp.py);
 `remat_step` is the same step with the backward recompute of
 jax.checkpoint(step, policy=LCP_REMAT_POLICY).
 
-The LCP is solved as the JAX package's step solves it: one boxed LCP per
-static constraint island when the world splits into several
-(SolverConfig.contact_islands), else, under SolverConfig.contact_cap, one
-on the `cap` deepest contact slots of each world (with the rows that are
-not contacts), else one on every row.
+The rows are the JAX package's: contacts, joint limits, servo, mimic and
+locked motors, and the user's ball and weld constraints with their
+error feedback. The LCP is solved as the JAX package's step solves it:
+one boxed LCP per static constraint island when the world splits into
+several (SolverConfig.contact_islands), else, under
+SolverConfig.contact_cap, one on the `cap` deepest contact slots of each
+world (with the rows that are not contacts), else one on every row. A
+world with no rows runs no collision and no LCP: v = v_pre and the
+impulses are (0, B).
 
 Device rule: the engine runs on the card unless the caller asks for the
 CPU. BatchedEngine(world) with no device means "cuda" and raises where
@@ -33,6 +37,7 @@ import torch
 from nimblephysics_tpu_torch.batched import linalg as bl
 from nimblephysics_tpu_torch.batched.articulated import (
     FlatWorld,
+    _pad,
     bias_forces,
     fk,
     integrate_positions,
@@ -150,16 +155,6 @@ class BatchedEngine:
         self.bcollider = BatchedCollider(self.collider)
         self.assembler = ConstraintAssembler(world, self.collider)
         self.meta = self.assembler.meta
-        if self.assembler.motor_rows or self.assembler.dyn_rows:
-            raise NotImplementedError(
-                "motor rows and dynamic weld/ball rows come with the rest of "
-                "the batched engine (ROADMAP queue 1 item 9)"
-            )
-        if self.num_rows == 0:
-            raise NotImplementedError(
-                "worlds without constraint rows come with the rest of the "
-                "batched engine (ROADMAP queue 1 item 9)"
-            )
         self.skel_slices = world.dof_slices()
         # Static constraint islands (None: one island, or islands off).
         self.islands = (
@@ -205,8 +200,36 @@ class BatchedEngine:
                 np.asarray(x), dtype=self.dtype, device=self.device
             )
 
-        C = self.bcollider.num_contacts
+        nv = self.world.num_dofs
         anc = self.fw.anc
+        # Motor rows: J (M, nv) with 1 at the dof (and -multiplier at a
+        # mimic's leader); a servo's target velocity is its control, read
+        # from control padded with a zero row (index nv) for the others.
+        motors = self.assembler.motor_rows
+        Jm = np.zeros((len(motors), nv))
+        target = np.full(len(motors), nv, dtype=np.int64)
+        for i, mr in enumerate(motors):
+            Jm[i, mr["dof"]] = 1.0
+            if mr["kind"] == "mimic" and mr["mimic_dof"] is not None:
+                Jm[i, mr["mimic_dof"]] = -mr["mimic_multiplier"]
+            if mr["kind"] == "servo":
+                target[i] = mr["dof"]
+        # Ball and weld constraints: the bodies' dof masks (1, nv, 1), the
+        # anchor offsets (3, 1) and a weld's relative rotation (3, 3, 1).
+        dyn = [
+            SimpleNamespace(
+                kind=con["kind"], body_a=con["body_a"], body_b=con["body_b"],
+                mask_a=t(anc[con["body_a"]])[None, :, None],
+                mask_b=t(anc[con["body_b"]])[None, :, None],
+                offset_a=t(con["offset_a"])[:, None],
+                offset_b=t(con["offset_b"])[:, None],
+                rel_rot=(t(con["rel_rot"])[..., None] if con["kind"] == "weld"
+                         else None),
+            )
+            for con in self.world.dynamic_constraints
+        ]
+
+        C = self.bcollider.num_contacts
         dmask = np.stack(
             [anc[self.bcollider.body_a[c]] - anc[self.bcollider.body_b[c]]
              for c in range(C)]
@@ -227,6 +250,9 @@ class BatchedEngine:
                 np.asarray(self.world.action_indices, dtype=np.int64),
                 device=self.device,
             ),
+            motor_J=t(Jm)[:, :, None],  # (M, nv, 1)
+            motor_target=torch.as_tensor(target, device=self.device),
+            dyn=dyn,
         )
 
     def _build_cap_meta(self, cap: int) -> LcpMeta:
@@ -388,8 +414,30 @@ class BatchedEngine:
         valid_rows = valid_c.repeat_interleave(3, dim=0)
         return Jc, valid_rows, b_c.reshape(3 * C, B), mu_c.reshape(3 * C, B)
 
-    def _assemble(self, q, v_pre, cpoint, cnormal, cdepth, W):
-        """Contact and limit rows: J (n, nv, B), b, mu, valid (n, B)."""
+    def _dynamic_block(self, k, v_pre, W, R_wb, p_wb):
+        """The rows of one ball (3: the anchor points) or weld (6: the
+        orientation, then the anchor points) constraint, with ERP feedback
+        of the position error, and the rotation error log(R_a rel R_b^T)
+        for a weld (the JAX package's batched rows)."""
+        cfg = self.world.solver
+        gamma = cfg.error_reduction_parameter / self.world.time_step
+        cap = cfg.joint_max_error_reduction_velocity
+        A, Bb = k.body_a, k.body_b
+        pA = bl.mv(R_wb[A], k.offset_a) + p_wb[A]
+        pB = bl.mv(R_wb[Bb], k.offset_b) + p_wb[Bb]
+        WA, WB = W * k.mask_a, W * k.mask_b
+        J = (WA[3:] - bl.cross_cols(pA, WA[:3])) - (WB[3:] - bl.cross_cols(pB, WB[:3]))
+        err = pA - pB
+        if k.kind == "weld":
+            R_e = bl.mm(bl.mm(R_wb[A], k.rel_rot), R_wb[Bb].transpose(0, 1))
+            J = torch.cat([(WA - WB)[:3], J])
+            err = torch.cat([bl.log_so3(R_e), err])
+        b = -torch.sum(J * v_pre[None, :, :], dim=1) - torch.clamp(gamma * err, -cap, cap)
+        return J, torch.ones_like(b, dtype=torch.bool), b, torch.zeros_like(b)
+
+    def _assemble(self, q, v_pre, cpoint, cnormal, cdepth, W, R_wb, p_wb, control):
+        """Contact, limit, motor and ball/weld rows: J (n, nv, B), b, mu,
+        valid (n, B)."""
         cfg = self.world.solver
         dt = self.world.time_step
         nv = self.world.num_dofs
@@ -410,6 +458,14 @@ class BatchedEngine:
                 cfg.joint_max_error_reduction_velocity,
             )
             blocks.append((Jl, valid_l, b_l, torch.zeros_like(b_l)))
+        M = c.motor_J.shape[0]
+        if M > 0:
+            b_m = _pad(control)[c.motor_target] - torch.sum(c.motor_J * v_pre[None], dim=1)
+            blocks.append((c.motor_J.expand(M, nv, B),
+                           torch.ones_like(b_m, dtype=torch.bool), b_m,
+                           torch.zeros_like(b_m)))
+        for k in c.dyn:
+            blocks.append(self._dynamic_block(k, v_pre, W, R_wb, p_wb))
         J = torch.cat([blk[0] for blk in blocks], dim=0)
         valid = torch.cat([blk[1] for blk in blocks], dim=0)
         b = torch.cat([blk[2] for blk in blocks], dim=0)
@@ -419,7 +475,8 @@ class BatchedEngine:
 
     def lcp_problem(self, q, v, control) -> LcpProblem:
         """Everything of one step before the LCP solve: smooth dynamics,
-        collision and the constraint rows, as F = J L^-T, b and mu."""
+        collision and the constraint rows, as F = J L^-T, b and mu (with no
+        rows: empty F, b, mu and contacts, and no collision)."""
         w = self.world
         dt = w.time_step
         B = q.shape[-1]
@@ -433,8 +490,13 @@ class BatchedEngine:
         v_pre = v + dt * bl.block_solve_tri_upper_t_vec(
             Ls, sl, bl.block_solve_tri_lower_vec(Ls, sl, tau - bias)
         )
+        if self.num_rows == 0:
+            empty = q.new_zeros(0, B)
+            return LcpProblem(q.new_zeros(0, w.num_dofs, B), empty, empty, v_pre, Ls,
+                              q.new_zeros(0, 3, B), q.new_zeros(0, 3, B), empty)
         cpoint, cnormal, cdepth = self.bcollider.collide(R_wb, p_wb, B)
-        Jrows, b, mu, _ = self._assemble(q, v_pre, cpoint, cnormal, cdepth, W)
+        Jrows, b, mu, _ = self._assemble(q, v_pre, cpoint, cnormal, cdepth, W,
+                                         R_wb, p_wb, control)
         # F = J L^-T  <=>  F^T = L^-1 J^T: (nv, n, B).
         Ft = bl.block_solve_tri_lower(Ls, sl, Jrows.transpose(0, 1))
         F = Ft.transpose(0, 1).contiguous()  # (n, nv, B)
@@ -509,7 +571,10 @@ class BatchedEngine:
 
     def _solve(self, prob: LcpProblem, z_warm, opts, saved: Optional[StepSaved] = None):
         """The step's impulses z (n, B), u = F^T z (nv, B) and its
-        StepSaved; with `saved`, the replay of that solve."""
+        StepSaved; with `saved`, the replay of that solve. A world with no
+        rows solves nothing: z is (0, B) and u None."""
+        if self.num_rows == 0:
+            return prob.b, None, StepSaved(())
         blocks, rows_idx = self.lcp_blocks(
             prob, z_warm, None if saved is None else saved.rows_idx)
         zs, lcps = [], []
@@ -544,11 +609,14 @@ class BatchedEngine:
         """The impulse velocity update (u = F^T z unless given) and the
         position integration."""
         w = self.world
-        if u is None:
-            u = torch.sum(prob.F * z[:, None, :], dim=0)
-        v_next = prob.v_pre + bl.block_solve_tri_upper_t_vec(
-            prob.Ls, self.skel_slices, u
-        )
+        if self.num_rows == 0:
+            v_next = prob.v_pre
+        else:
+            if u is None:
+                u = torch.sum(prob.F * z[:, None, :], dim=0)
+            v_next = prob.v_pre + bl.block_solve_tri_upper_t_vec(
+                prob.Ls, self.skel_slices, u
+            )
         v_for_pos = v if w.parallel_velocity_and_position_updates else v_next
         q_next = integrate_positions(self.fw, q, v_for_pos, w.time_step)
         return BatchedStepResult(
@@ -578,7 +646,7 @@ class BatchedEngine:
         if body_params is not None:
             raise NotImplementedError(
                 "body_params gradients come with the rest of the batched "
-                "engine (ROADMAP queue 1 item 9)"
+                "engine (ROADMAP queue 1 item 9.5)"
             )
         z_warm = self._inputs(q, v, control, z_warm)
         prob = self.lcp_problem(q, v, control)

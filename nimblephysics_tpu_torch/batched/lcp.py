@@ -42,8 +42,9 @@ from nimblephysics_tpu_torch.constraint.lcp import LcpMeta, _dtype_ridge, _dtype
 def _meta_tensors(meta: LcpMeta, dtype: torch.dtype, device: torch.device):
     """The row plan's static tensors, built once per meta/dtype/device so
     that a step copies nothing from the host: bounds lo/hi (n, 1),
-    is_friction (n, 1) bool and findex clamped to >= 0 (the gather index
-    of every row; non-friction rows gather row 0)."""
+    is_friction (n, 1) bool, findex clamped to >= 0 (the gather index of
+    every row; non-friction rows gather row 0) and the bounds with the
+    infinite ones at 0 (n, 1), where a pinned row rests."""
     n = meta.n
     lo = (
         torch.as_tensor(meta.lo_const, dtype=dtype, device=device)
@@ -59,17 +60,21 @@ def _meta_tensors(meta: LcpMeta, dtype: torch.dtype, device: torch.device):
     fidx = torch.as_tensor(
         np.maximum(meta.findex, 0).astype(np.int64), device=device
     )
-    return lo[:, None], hi[:, None], isf, fidx
+    lo, hi = lo[:, None], hi[:, None]
+    zero = torch.zeros_like(lo)
+    rest = (torch.where(torch.isfinite(lo), lo, zero),
+            torch.where(torch.isfinite(hi), hi, zero))
+    return lo, hi, isf, fidx, rest
 
 
 def _const_bounds(meta: LcpMeta, dtype, device):
-    lo, hi, _, _ = _meta_tensors(meta, dtype, torch.device(device))
+    lo, hi, _, _, _ = _meta_tensors(meta, dtype, torch.device(device))
     return lo, hi
 
 
 def _rows(meta: LcpMeta, device):
     """is_friction (n, 1) bool and the clamped findex gather index."""
-    _, _, isf, fidx = _meta_tensors(meta, torch.float32, torch.device(device))
+    _, _, isf, fidx, _ = _meta_tensors(meta, torch.float32, torch.device(device))
     return isf, fidx
 
 
@@ -130,10 +135,11 @@ def _build_UV(meta: LcpMeta, F, mu, clamping, upper, sign_u):
     fr = np.where(meta.findex >= 0)[0]
     if len(fr) > 0:
         if not _is_contact_layout(meta):
+            # The assembler puts its contact triples first, and islands and
+            # the contact cap keep them so; only a hand-made plan gets here.
             raise NotImplementedError(
                 "pinned solve: friction rows outside the contact-triple "
-                "layout come with motor and dynamic-joint rows (ROADMAP "
-                "queue 1 item 9)"
+                "layout (no world the assembler builds has them)"
             )
         contrib = F * coeff[:, None, :]
         C3 = int(fr.max()) + 1
@@ -156,18 +162,22 @@ def _pinned_solve(
     cfm > 0 (the ladder rung): (U V^T + cfm I)|_S x = rhs by Woodbury,
     x = (rhs - U w)/cfm with (cfm I_r + V^T U) w = V^T rhs solved through
     ridged normal equations.
+
+    With box bounds (meta.lo_const / hi_const), a non-friction row that
+    does not clamp rests at its upper bound where at_hi says so, else at
+    its lower bound (an infinite bound at 0): that fixed z enters the
+    right-hand side, b - A z_fixed, and the result.
     """
     dtype = F.dtype
     r = F.shape[1]
     U, H, S, coeff = _build_UV(meta, F, mu, clamping, upper, sign_u)
-    _, fidx = _rows(meta, F.device)
+    _, _, isf, fidx, (lo_rest, hi_rest) = _meta_tensors(meta, dtype, F.device)
 
-    has_boxes = meta.lo_const is not None or meta.hi_const is not None
-    if has_boxes and at_hi is not None:
-        raise NotImplementedError(
-            "box-bounded rows (motors, dynamic joints) come with the rest "
-            "of the batched engine (ROADMAP queue 1 item 9)"
-        )
+    z_fixed = None
+    if (meta.lo_const is not None or meta.hi_const is not None) and at_hi is not None:
+        z_fixed = torch.where(~clamping & ~isf, torch.where(at_hi, hi_rest, lo_rest),
+                              torch.zeros_like(b))
+        b = b - _Av(F, cfm, z_fixed)
     bS = b * S
     ridge = _dtype_ridge(meta, dtype)
     eye_r = torch.eye(r, dtype=dtype, device=F.device)[..., None]
@@ -205,7 +215,8 @@ def _pinned_solve(
     if polish:
         # One iterative-refinement step cancels the ridge bias.
         x = x + solve_once(bS - _UVt(U, H, x))
-    return S * x + coeff * x[fidx]
+    z = S * x + coeff * x[fidx]
+    return z if z_fixed is None else z + z_fixed
 
 
 def _UVt(U, V, x):

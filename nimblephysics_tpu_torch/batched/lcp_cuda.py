@@ -293,8 +293,12 @@ def resident_warps(plan: SeedPlan, polish: bool) -> int:
 def _static_rows(meta: LcpMeta, device: torch.device):
     """Per-row kernel inputs: is_friction, findex (int32), lo, hi (f32).
 
-    hi = +inf is passed as is (IEEE min/max clip against it exactly); the
-    Pallas kernel clamps it to 3.4e38 because of its TPU lowering.
+    Infinite bounds (hi = +inf of a contact or limit row, lo = -inf and
+    hi = +inf of a locked motor or a ball or weld row) are passed as they
+    are: the kernel only clips against them with fminf/fmaxf, exact at
+    +-inf as torch.minimum/maximum in the plain versions. The Pallas kernel
+    clamps them to +-3.4e38 because of its TPU lowering; a finite iterate
+    is clipped the same either way.
     """
     fr = meta.findex >= 0
     fidx = np.maximum(meta.findex, 0)
@@ -313,6 +317,8 @@ def apgd_cuda(meta: LcpMeta, F, b, mu, z0, cfm: float = 0.0,
     the same launch. Counts each launch in apgd_seed.launches.
     """
     n, r, B = F.shape
+    if n == 0:
+        raise ValueError("apgd_cuda: an LCP with no rows (the engine solves none)")
     for name, x, shape in (("F", F, (n, r, B)), ("b", b, (n, B)),
                            ("mu", mu, (n, B)), ("z0", z0, (n, B))):
         if not x.is_cuda or x.device != F.device:

@@ -53,6 +53,17 @@ def cross(a, b):
     )
 
 
+def cross_cols(p, A):
+    """[p]x applied to every column: (3, B), (3, n, B) -> (3, n, B)."""
+    return torch.stack(
+        [
+            p[1, None] * A[2] - p[2, None] * A[1],
+            p[2, None] * A[0] - p[0, None] * A[2],
+            p[0, None] * A[1] - p[1, None] * A[0],
+        ]
+    )
+
+
 def gram(U, V):
     """Batched Gram product U^T V: (n, r, B) x (n, s, B) -> (r, s, B)."""
     return torch.einsum("irb,isb->rsb", U, V)

@@ -58,8 +58,8 @@ def _canonical_pair(sa: SH.ShapeSpec, sb: SH.ShapeSpec):
     if ta in _LATER_TYPES or tb in _LATER_TYPES:
         raise NotImplementedError(
             f"collision pair ({ta}, {tb}): mesh, heightmap and multisphere "
-            "kinds come with the rest of the batched engine (ROADMAP queue 1 "
-            "item 9)"
+            "pairs go through the single-world narrowphase, which comes with "
+            "the single-world reference path (ROADMAP queue 1 item 10)"
         )
     return None, 0, False
 

@@ -14,10 +14,18 @@ Spec layout (every array-like is converted with np.asarray):
      "parallel_velocity_and_position_updates": bool,
      "action_indices": (na,) or None,
      "collision_overrides": [(body_i, body_j, collide: bool), ...],
+     "actuator_types": {dof: {"kind", "force_limit", "mimic_dof",
+                              "mimic_multiplier", "mimic_offset"}, ...},
+     "dynamic_constraints": [{"kind": "ball", "body_a", "offset_a" (3,),
+                              "body_b", "offset_b" (3,)} or
+                             {"kind": "weld", "body_a", "body_b",
+                              "rel_rot" (3,3), "offset_a" (3,),
+                              "offset_b" (3,)}, ...],
      "skeletons": [
         {"name": str, "self_collision": bool, "adjacent_body_check": bool,
          "joints": [{"type", "parent", "name", "T_pj" (4,4), "T_cj" (4,4),
-                     "axes" (k,3) or None, "damping", "spring_stiffness",
+                     "axes" (k,3) or None, "euler_order", "screw_pitch",
+                     "damping", "spring_stiffness",
                      "rest_position", "position_lower", "position_upper",
                      "velocity_limit", "force_limit": (nd,) or None}],
          "bodies": [{"mass", "com" (3,), "inertia" (3,3),
@@ -26,14 +34,15 @@ Spec layout (every array-like is converted with np.asarray):
                                  "collidable"}]}]}]}
 
 Joint i of a skeleton carries body i. Joint types are the names of
-dynamics/joints.py: "revolute" and "prismatic" (one axis), "weld" (none),
-"ball" (3 dofs: rotation coordinates w, R = exp(w)) and "free" (6 dofs:
-w, then the translation); a skeleton with them builds here, the batched
-engine takes these five. Shape types are those of dynamics/shapes.py,
-with their `size`: "box" full side lengths (3,), "plane" [nx, ny, nz,
-offset], "sphere" [radius], "capsule" [radius, height].
-collision_overrides names global body indices (bodies counted across
-the skeletons in order); False filters the pair, True forces it.
+dynamics/joints.py; the batched engine takes all of them but the
+spline-driven ones (custom, ellipsoid, scapulathoracic, constantcurve,
+constantcurveincompressible). Shape types are those of
+dynamics/shapes.py, with their `size`: "box" full side lengths (3,),
+"plane" [nx, ny, nz, offset], "sphere" [radius], "capsule" [radius,
+height]. collision_overrides and dynamic_constraints name global body
+indices (bodies counted across the skeletons in order); False filters a
+pair, True forces it. A weld entry carries the relative rotation and
+anchor offsets captured where it was made (World.add_weld_joint_constraint).
 """
 
 from __future__ import annotations
@@ -90,6 +99,8 @@ def world_from_arrays(spec: dict) -> World:
                 T_pj=jd.get("T_pj"),
                 T_cj=jd.get("T_cj"),
                 axes=jd.get("axes"),
+                euler_order=jd.get("euler_order", "xyz"),
+                screw_pitch=float(jd.get("screw_pitch", 0.0)),
                 mass=float(bd["mass"]),
                 com=np.asarray(bd["com"], dtype=np.float64),
                 inertia=np.asarray(bd["inertia"], dtype=np.float64),
@@ -101,6 +112,12 @@ def world_from_arrays(spec: dict) -> World:
         world.set_action_space(spec["action_indices"])
     for i, j, collide in spec.get("collision_overrides", ()):
         world.collision_overrides[(int(i), int(j))] = bool(collide)
+    for dof, act in spec.get("actuator_types", {}).items():
+        world.set_actuator_type(int(dof), **act)
+    for con in spec.get("dynamic_constraints", ()):
+        world.dynamic_constraints.append(
+            {k: (x if isinstance(x, str) else int(x) if k.startswith("body")
+                 else np.asarray(x, dtype=np.float64)) for k, x in con.items()})
     return world
 
 

@@ -2,9 +2,16 @@
 
 from nimblephysics_tpu_torch.dynamics.joints import (
     BALL,
+    EULER,
+    EULER_FREE,
     FREE,
+    PLANAR,
     PRISMATIC,
     REVOLUTE,
+    SCREW,
+    TRANSLATIONAL,
+    TRANSLATIONAL_2D,
+    UNIVERSAL,
     WELD,
     JointSpec,
 )

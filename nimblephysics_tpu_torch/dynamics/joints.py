@@ -72,6 +72,8 @@ class JointSpec:
     T_pj: np.ndarray  # (4, 4) transformFromParentBodyNode
     T_cj: np.ndarray  # (4, 4) transformFromChildBodyNode
     axes: Optional[np.ndarray] = None  # (ndof_axes, 3)
+    euler_order: str = "xyz"  # euler and eulerfree: intrinsic axis order
+    screw_pitch: float = 0.0  # screw: translation per radian along the axis
     damping: Optional[np.ndarray] = None
     spring_stiffness: Optional[np.ndarray] = None
     rest_position: Optional[np.ndarray] = None

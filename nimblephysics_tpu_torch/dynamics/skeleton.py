@@ -70,6 +70,8 @@ class Skeleton:
         com: Sequence = (0.0, 0.0, 0.0),
         inertia: Optional[np.ndarray] = None,
         shapes: Sequence[ShapeSpec] = (),
+        euler_order: str = "xyz",
+        screw_pitch: float = 0.0,
         damping: Optional[Sequence] = None,
         spring_stiffness: Optional[Sequence] = None,
         rest_position: Optional[Sequence] = None,
@@ -100,6 +102,8 @@ class Skeleton:
                 if axes is None
                 else np.asarray(axes, dtype=np.float64).reshape(-1, 3)
             ),
+            euler_order=euler_order,
+            screw_pitch=float(screw_pitch),
             damping=_vec(damping),
             spring_stiffness=_vec(spring_stiffness),
             rest_position=_vec(rest_position),

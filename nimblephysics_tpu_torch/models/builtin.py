@@ -1,9 +1,12 @@
-"""Model zoo: the half-cheetah benchmark world and the box stack, built
-in code.
+"""Model zoo: the half-cheetah benchmark world, the box stack, the
+reference benchmark suite's jump-worm and catapult worlds and the
+inverted double pendulum, built in code.
 
 Counterpart of nimblephysics_tpu/models/builtin.py (physical parameters
-of the reference asset data/skel/half_cheetah.skel; box_stack of the
-box-stack benchmark). Each returns (World, q0, v0).
+of the reference assets data/skel/half_cheetah.skel and
+inverted_double_pendulum.skel; box_stack of the box-stack benchmark;
+jump_worm and catapult of python/nimblephysics_benchmarks). Each returns
+(World, q0, v0).
 """
 
 from __future__ import annotations
@@ -12,7 +15,13 @@ from typing import Tuple
 
 import numpy as np
 
-from nimblephysics_tpu_torch.dynamics.joints import FREE, PRISMATIC, REVOLUTE, WELD
+from nimblephysics_tpu_torch.dynamics.joints import (
+    FREE,
+    PRISMATIC,
+    REVOLUTE,
+    TRANSLATIONAL_2D,
+    WELD,
+)
 from nimblephysics_tpu_torch.dynamics.shapes import ShapeSpec
 from nimblephysics_tpu_torch.dynamics.skeleton import Skeleton
 from nimblephysics_tpu_torch.simulation.world import World
@@ -223,3 +232,125 @@ def box_stack(
         q0[6 * i + 5] = z - 1e-4  # a hair into contact
         z += s / 2.0
     return w, q0, np.zeros(6 * n_boxes)
+
+
+def inverted_double_pendulum() -> Tuple[World, np.ndarray, np.ndarray]:
+    """Cart + two-link pole (3 dof) with no collidable shape: a world with
+    no constraint rows."""
+    w = World(name="inverted_double_pendulum", gravity=(0.0, -9.81, 0.0),
+              time_step=0.01)
+    sk = Skeleton("pendulum")
+    cart = sk.add_joint_and_body(
+        PRISMATIC, parent=-1, name="cart", axis=[1.0, 0.0, 0.0], mass=10.0,
+        inertia=np.eye(3) * 0.1,
+        shapes=(ShapeSpec("box", np.array([0.3, 0.15, 0.15]), collidable=False),),
+        damping=[0.5],
+    )
+    link_inertia = np.eye(3) * (1.0 * 0.6**2 / 12.0)
+    link1 = sk.add_joint_and_body(
+        REVOLUTE, parent=cart, name="link1", axis=[0.0, 0.0, 1.0], mass=1.0,
+        com=np.array([0.0, 0.3, 0.0]), inertia=link_inertia, damping=[0.1],
+    )
+    sk.add_joint_and_body(
+        REVOLUTE, parent=link1, name="link2", T_pj=_T((0.0, 0.6, 0.0)),
+        axis=[0.0, 0.0, 1.0], mass=1.0, com=np.array([0.0, 0.3, 0.0]),
+        inertia=link_inertia, damping=[0.1],
+    )
+    w.add_skeleton(sk)
+    return w, np.zeros(3), np.zeros(3)
+
+
+def _tail_segment(sk, parent, name, force, first):
+    """One jump-worm/catapult tail link: revolute about +z with limits
+    [0, pi] and a force limit, a 0.05 x 0.25 x 0.05 box, the joint at the
+    child box's bottom face (and the parent box's top face for chained
+    segments).
+
+    The inertia is the box's own (inertia_box), as in the JAX package,
+    which documents it as a deliberate deviation: the reference benchmark
+    bodies keep DART's default identity moment of inertia."""
+    size = np.array([0.05, 0.25, 0.05])
+    return sk.add_joint_and_body(
+        REVOLUTE,
+        parent=parent,
+        name=name,
+        axis=[0.0, 0.0, 1.0],
+        T_pj=None if first else _T((0.0, 0.125, 0.0)),
+        T_cj=_T((0.0, -0.125, 0.0)),
+        mass=1.0,
+        inertia=inertia_box(1.0, size),
+        shapes=(ShapeSpec("box", size),),
+        position_lower=[0.0],
+        position_upper=[np.pi],
+        force_limit=[force],
+    )
+
+
+def jump_worm() -> Tuple[World, np.ndarray, np.ndarray]:
+    """The reference benchmark suite's jump worm: a 2D (x, y) root box
+    with a 3-segment revolute tail over a welded box floor (5 dofs,
+    box-box contact). Actions drive the 3 tail joints."""
+    w = World(name="jump_worm", gravity=(0.0, -9.81, 0.0), time_step=0.001)
+    worm = Skeleton("jump_worm")
+    root_size = np.array([0.1, 0.1, 0.1])
+    seg = worm.add_joint_and_body(
+        TRANSLATIONAL_2D,
+        parent=-1,
+        name="root",
+        axes=[[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]],
+        mass=1.0,
+        inertia=inertia_box(1.0, root_size),
+        shapes=(ShapeSpec("box", root_size),),
+    )
+    for i in range(3):
+        seg = _tail_segment(worm, seg, f"tail{i + 1}", 100.0, first=(i == 0))
+    w.add_skeleton(worm)
+    floor = Skeleton("floor")
+    floor.add_joint_and_body(
+        WELD, name="floor", T_pj=_T((0.0, -0.7, 0.0)), mass=1.0,
+        shapes=(ShapeSpec("box", np.array([2.5, 0.25, 0.5])),),
+    )
+    w.add_skeleton(floor)
+    w.set_action_space([2, 3, 4])
+    # The reference's start: positions [0, -0.14, 90, 90, 45] deg.
+    q0 = np.array([0.0, -0.14, _HALF_PI, _HALF_PI, np.pi / 4.0])
+    return w, q0, np.zeros(5)
+
+
+def catapult() -> Tuple[World, np.ndarray, np.ndarray]:
+    """The reference benchmark suite's catapult: a passive 2D projectile
+    box and a welded-base 3-link arm over a box floor, with a
+    non-collidable target box (5 dofs). Actions drive the 3 arm joints."""
+    w = World(name="catapult", gravity=(0.0, -9.81, 0.0), time_step=0.001)
+    proj = Skeleton("projectile")
+    proj_size = np.array([0.1, 0.1, 0.1])
+    proj.add_joint_and_body(
+        TRANSLATIONAL_2D,
+        parent=-1,
+        name="projectile",
+        axes=[[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]],
+        mass=1.0,
+        inertia=inertia_box(1.0, proj_size),
+        shapes=(ShapeSpec("box", proj_size),),
+    )
+    w.add_skeleton(proj)
+    cat = Skeleton("catapult")
+    seg = cat.add_joint_and_body(WELD, name="base", T_pj=_T((0.5, -0.45, 0.0)),
+                                 mass=1.0)
+    for i in range(3):
+        seg = _tail_segment(cat, seg, f"arm{i + 1}", 1000.0, first=(i == 0))
+    w.add_skeleton(cat)
+    floor = Skeleton("floor")
+    fb = floor.add_joint_and_body(
+        WELD, name="floor", T_pj=_T((1.2, -0.7, 0.0)), mass=1.0,
+        shapes=(ShapeSpec("box", np.array([3.5, 0.25, 0.5])),),
+    )
+    floor.add_joint_and_body(  # the reach target, world (2.2, 2.2); visual only
+        WELD, parent=fb, name="target", T_pj=_T((1.0, 2.9, 0.0)), mass=1.0,
+        shapes=(ShapeSpec("box", np.array([0.1, 0.1, 0.1]), collidable=False),),
+    )
+    w.add_skeleton(floor)
+    w.set_action_space([2, 3, 4])
+    # The reference's start: arm [45 deg, 0, 0.65 rad], projectile (0, 0).
+    q0 = np.array([0.0, 0.0, np.pi / 4.0, 0.0, 0.65])
+    return w, q0, np.zeros(5)

@@ -2,8 +2,8 @@
 
 Counterpart of the plan surface of nimblephysics_tpu/simulation/world.py:
 SolverConfig (with the throughput() preset), dof/body bookkeeping across
-skeletons, the action space, limits and actuator types. Stepping lives in
-batched/engine.py.
+skeletons, the action space, limits, actuator types and the user-added
+weld and ball constraints. Stepping lives in batched/engine.py.
 """
 
 from __future__ import annotations
@@ -82,8 +82,8 @@ class World:
         self.solver = solver or SolverConfig()
         self.skeletons: List[Skeleton] = []
         self._action_indices: Optional[np.ndarray] = None
-        # User-added weld/ball constraints (plan entries as in the JAX
-        # package); the batched engine does not take them yet.
+        # User-added weld/ball constraints, plan entries as in the JAX
+        # package (add_ball_joint_constraint, add_weld_joint_constraint).
         self.dynamic_constraints: List[dict] = []
         self.actuator_types: Dict[int, dict] = {}
         # Reference integration scheme (World.cpp:82): q_{t+1} integrates
@@ -98,6 +98,41 @@ class World:
         )
         self.skeletons.append(skel)
         return len(self.skeletons) - 1
+
+    def add_ball_joint_constraint(self, body_a: int, offset_a, body_b: int,
+                                  offset_b) -> None:
+        """Hold the point offset_a of body_a to the point offset_b of
+        body_b (body frames; global body indices)."""
+        self.dynamic_constraints.append(dict(
+            kind="ball",
+            body_a=int(body_a),
+            offset_a=np.asarray(offset_a, dtype=np.float64),
+            body_b=int(body_b),
+            offset_b=np.asarray(offset_b, dtype=np.float64),
+        ))
+
+    def add_weld_joint_constraint(self, body_a: int, body_b: int,
+                                  at_positions=None) -> None:
+        """Weld body_b to body_a in their relative pose at `at_positions`
+        (the zero pose by default), anchored at body_b's origin. The pose
+        comes from the batched forward kinematics on the CPU in float64."""
+        import torch
+
+        from nimblephysics_tpu_torch.batched.articulated import FlatWorld, fk
+
+        q0 = (np.zeros(self.num_dofs) if at_positions is None
+              else np.asarray(at_positions, dtype=np.float64))
+        R, p, *_ = fk(FlatWorld(self), torch.as_tensor(q0, dtype=torch.float64)[:, None])
+        RA, RB = (R[int(b)][..., 0].numpy() for b in (body_a, body_b))
+        pA, pB = (p[int(b)][:, 0].numpy() for b in (body_a, body_b))
+        self.dynamic_constraints.append(dict(
+            kind="weld",
+            body_a=int(body_a),
+            body_b=int(body_b),
+            rel_rot=RA.T @ RB,
+            offset_a=RA.T @ (pB - pA),
+            offset_b=np.zeros(3),
+        ))
 
     def set_actuator_type(
         self,

@@ -2,7 +2,8 @@
 """Where a step of nimblephysics_tpu_torch's main path spends its time on
 one NVIDIA GPU.
 
-    python3 profile_torch_step.py [--world half_cheetah|box3] [--trace PATH]
+    python3 profile_torch_step.py [--world half_cheetah|box3|jump_worm|catapult]
+                                  [--trace PATH]
 
 Builds the main path of chip_smoke.py with its own functions (4096
 worlds, float32) and traces it with torch.profiler. For the half-cheetah
@@ -14,7 +15,10 @@ worlds, float32) and traces it with torch.profiler. For the half-cheetah
     chip_smoke.HIDDEN, the default SolverConfig) after an untraced one.
 For --world box3, the 3-box stack's forward rollout (chip_smoke's
 box_start, the default SolverConfig), settled with chip_smoke.STEPS
-untraced steps, TRACED_STEPS traced.
+untraced steps, TRACED_STEPS traced. For --world jump_worm or catapult,
+the reference suite's world under the default SolverConfig driven by its
+policy (chip_smoke's make_ref_engine, ref_start and policy_rollout),
+after chip_smoke.STEPS untraced steps.
 Prints, per env-step of each cell: host milliseconds, CUDA kernel
 launches, summed kernel time and the device's busy share of the wall
 time, and the kernels that take the most device time; with --trace,
@@ -104,7 +108,8 @@ def profile(label, fn, steps, trace=None):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--world", choices=("half_cheetah", "box3"), default="half_cheetah")
+    ap.add_argument("--world", choices=("half_cheetah", "box3") + chip_smoke.REF_WORLDS,
+                    default="half_cheetah")
     ap.add_argument("--trace", help="write Chrome traces to this path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -125,6 +130,17 @@ def main() -> int:
         torch.cuda.synchronize()
         summaries.append(profile(
             "box3_forward_default", lambda: chip_smoke.rollout(eng, carry, u, TRACED_STEPS),
+            TRACED_STEPS, args.trace))
+        print(json.dumps(summaries))
+        return 0
+    if args.world in chip_smoke.REF_WORLDS:
+        _, q0, v0, eng = chip_smoke.make_ref_engine(dev, args.world)
+        carry, policy = chip_smoke.ref_start(eng, q0, v0, np.random.RandomState(chip_smoke.SEED), dev)
+        carry = chip_smoke.policy_rollout(eng, carry, policy, chip_smoke.STEPS)
+        torch.cuda.synchronize()
+        summaries.append(profile(
+            f"{args.world}_forward_default",
+            lambda: chip_smoke.policy_rollout(eng, carry, policy, TRACED_STEPS),
             TRACED_STEPS, args.trace))
         print(json.dumps(summaries))
         return 0

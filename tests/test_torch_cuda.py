@@ -4,8 +4,11 @@ PyTorch version in float32 at the main path's shape, at the box stack's
 (n = 144, r = 18) and on the box-stack engine's own LCPs (2 and 3 boxes,
 5 boxes under contact_cap 48, one island of the islands scene), its
 refusal beyond its launch plan (a 10-box stack's capped LCP included),
-the islands' one launch per island and step, and the training step's
-kernel launches and gradients.
+the islands' one launch per island and step, the training step's
+kernel launches and gradients, K1 and K1b on the box-bounded LCPs of the
+motor scenes (servo, mimic, locked, ball, weld; chip_smoke.motor_scene),
+and one jump_worm step on the card with one K1b launch and never the
+plain seed.
 
 They need an NVIDIA GPU and nvcc and skip elsewhere. This file imports
 neither jax nor the JAX package, so that it runs where only PyTorch is
@@ -312,3 +315,75 @@ def test_ten_box_stack_is_refused_with_its_numbers():
     with pytest.raises(NotImplementedError, match="n=288, r=60"):
         _box_state(dev, eng, q0, 64, 1)
     assert lcp_cuda.apgd_seed.launches == before
+
+
+def _slice_lcp(dev, name, B=1024):
+    """The default-config LCP of one of chip_smoke's slice worlds after 5
+    steps from its start at B worlds: (meta, F, b, mu, z_warm)."""
+    import chip_smoke
+
+    from nimblephysics_tpu_torch.batched import BatchedEngine
+
+    if name == "jump_worm":
+        _, q0, v0, eng = chip_smoke.make_ref_engine(dev, name)
+        carry, drive = chip_smoke.ref_start(eng, q0, v0, np.random.RandomState(1), dev, B)
+    else:
+        eng = BatchedEngine(chip_smoke.motor_scene(name)[0], device=dev)
+        carry, drive = chip_smoke.motor_start(eng, name, np.random.RandomState(1), dev, B)
+    q, v, z = chip_smoke.advance(eng, carry, drive, 5)
+    u = (eng.action_to_forces(drive(torch.cat([q, v]))).detach()
+         if isinstance(drive, torch.nn.Module) else drive)
+    return [x.contiguous() if torch.is_tensor(x) else x
+            for x in eng.lcp_blocks(eng.lcp_problem(q, v, u), z)[0][0]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweeps", [0, 16], ids=["K1", "K1b"])
+@pytest.mark.parametrize("name", ["servo", "mimic", "locked", "ball", "weld", "jump_worm"])
+def test_slice_lcp_matches_plain(name, sweeps):
+    """K1 / K1b on the LCPs with finite upper and negative lower bounds
+    (servo and mimic rows), unbounded rows (locked, ball, weld) and the
+    worm's contacts and limits, against the plain versions; the
+    saturated servo sits at its bound."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    meta, F, b, mu, zw = _slice_lcp(_cuda(), name)
+    z = lcp_cuda.apgd_cuda(meta, F, b, mu, zw, pgs_sweeps=sweeps)
+    want = lcp_cuda.apgd_plain(meta, F, 0.0, b, mu, zw)
+    if sweeps:
+        want = lcp_cuda.pgs_plain(meta, F, 0.0, b, mu, want, sweeps=sweeps)
+    scale = 1.0 + want.abs().amax(dim=0)
+    assert float(((z - want).abs() / scale).max()) <= (PGS_TOL if sweeps else KERNEL_TOL)
+    if name == "servo":
+        assert torch.allclose(z[0], torch.full_like(z[0], float(meta.hi_const[0])), rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_jump_worm_step_on_the_card():
+    """One default-config jump_worm step at 1024 worlds: one K1b launch,
+    never the plain seed, finite, and within float32 rounding of the CPU
+    float64 step from the same state."""
+    from unittest import mock
+
+    import chip_smoke
+
+    from nimblephysics_tpu_torch.batched import BatchedEngine, lcp_cuda
+
+    dev = _cuda()
+    world, q0, v0, eng = chip_smoke.make_ref_engine(dev, "jump_worm")
+    (q, v, z), policy = chip_smoke.ref_start(eng, q0, v0, np.random.RandomState(2), dev, 1024)
+    u = eng.action_to_forces(policy(torch.cat([q, v]))).detach()
+
+    def refuse(*_, **__):
+        raise AssertionError("the plain seed ran on the card")
+
+    before = lcp_cuda.apgd_seed.launches
+    with mock.patch.object(lcp_cuda, "seed_plain", refuse), \
+            mock.patch.object(lcp_cuda, "apgd_plain", refuse):
+        r = eng.step(q, v, u, z_warm=z)
+    assert lcp_cuda.apgd_seed.launches == before + 1
+    assert all(bool(torch.isfinite(x).all()) for x in (r.q, r.v, r.impulses))
+    cpu = BatchedEngine(world, device="cpu", dtype=torch.float64)
+    c = cpu.step(*(x.double().cpu() for x in (q, v, u)), z_warm=z.double().cpu())
+    assert float((r.q.double().cpu() - c.q).abs().max()) <= 1e-6
+    assert float(r.impulses.abs().max()) > 0

@@ -106,13 +106,13 @@ def test_kernel_wrapper_refuses_cpu_tensors_without_launching():
 
 
 @pytest.mark.parametrize(
-    "what", ["joint_type", "pair_kind", "body_params", "motor"]
+    "what", ["joint_type", "pair_kind", "body_params", "max_contacts"]
 )
 def test_off_slice_options_raise(what):
     """What the port does not take yet raises, naming its ROADMAP item:
-    joint types other than revolute, prismatic, weld, ball and free;
-    pair kinds other than sphere-, capsule- and box-plane and box-box;
-    body_params; motor rows."""
+    the spline-driven joint types (an ellipsoid joint); mesh, heightmap
+    and multisphere pairs (a mesh against the ground); body_params; and
+    World.max_contacts below the slot count."""
     from nimblephysics_tpu_torch.batched import BatchedEngine
     from nimblephysics_tpu_torch.dynamics import PRISMATIC, ShapeSpec, Skeleton
     from nimblephysics_tpu_torch.models import half_cheetah
@@ -123,15 +123,15 @@ def test_off_slice_options_raise(what):
     kw = dict(device="cpu", dtype=torch.float64)
     if what == "joint_type":
         arm = Skeleton("arm")
-        arm.add_joint_and_body("universal", axes=[[1, 0, 0], [0, 1, 0]])
+        arm.add_joint_and_body("ellipsoid")
         world.add_skeleton(arm)
-    elif what == "pair_kind":  # a sphere against the cheetah's capsules
-        ball = Skeleton("ball")
-        ball.add_joint_and_body(PRISMATIC, axis=[0, 1, 0], shapes=(
-            ShapeSpec("sphere", np.array([0.1])),))
-        world.add_skeleton(ball)
-    elif what == "motor":
-        world.set_actuator_type(3, "servo", force_limit=10.0)
+    elif what == "pair_kind":
+        rock = Skeleton("rock")
+        rock.add_joint_and_body(PRISMATIC, axis=[0, 1, 0], shapes=(
+            ShapeSpec("mesh", np.zeros((4, 3))),))
+        world.add_skeleton(rock)
+    elif what == "max_contacts":
+        world.max_contacts = 4  # of the cheetah's 16 slots
     if what == "body_params":
         eng = BatchedEngine(world, **kw)
         q = torch.zeros(9, 2, dtype=torch.float64)

@@ -25,8 +25,15 @@ H100_SMEM = 232448
 @pytest.mark.parametrize(
     "n,r,width,rows,worlds,stride,smem",
     [(60, 9, 12, 2, 8, 1033, 34016),  # the half-cheetah's LCP
-     (144, 18, 24, 8, 8, 4201, 136736)],  # the box stack, lcp_pallas.py:207-210
-    ids=["half_cheetah", "box_stack"])
+     (144, 18, 24, 8, 8, 4201, 136736),  # the box stack, lcp_pallas.py:207-210
+     (102, 5, 8, 8, 8, 1335, 44352),  # jump_worm
+     (174, 5, 8, 8, 8, 2271, 75456),  # catapult
+     (1, 1, 8, 2, 8, 21, 688),  # the servo and locked pendulums
+     (1, 2, 8, 2, 8, 21, 688),  # the mimic double pendulum
+     (27, 6, 8, 2, 8, 359, 11920),  # the ball-pinned box
+     (30, 12, 12, 2, 8, 523, 17216)],  # the welded boxes
+    ids=["half_cheetah", "box_stack", "jump_worm", "catapult", "servo",
+         "mimic", "ball", "weld"])
 def test_seed_plan_fits(n, r, width, rows, worlds, stride, smem):
     plan = lcp_cuda.seed_plan(n, r, H100_SMEM)
     assert plan.fits and plan.why == ""
@@ -90,3 +97,13 @@ def test_zero_column_padding_is_exact(width):
     got = lcp_cuda.seed_plain(meta, Fp, 0.0, b, mu, z0)
     assert torch.equal(got, want)
     assert not torch.equal(want, z0)
+
+
+def test_kernel_refuses_an_lcp_with_no_rows():
+    """apgd_cuda raises on n = 0 before it looks at the card (the engine
+    never calls it so: a world with no rows solves no LCP)."""
+    meta = LcpMeta(findex=np.zeros(0, np.int32), is_friction=np.zeros(0, bool))
+    x = torch.zeros(0, 2)
+    with pytest.raises(ValueError, match="no rows"):
+        lcp_cuda.apgd_cuda(meta, torch.zeros(0, 3, 2), x, x, x)
+    assert lcp_cuda.apgd_seed.launches == 0

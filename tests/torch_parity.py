@@ -28,6 +28,8 @@ def dump_world(world) -> dict:
                 T_pj=np.asarray(j.T_pj),
                 T_cj=np.asarray(j.T_cj),
                 axes=None if j.axes is None else np.asarray(j.axes),
+                euler_order=j.euler_order,
+                screw_pitch=j.screw_pitch,
                 damping=j.damping,
                 spring_stiffness=j.spring_stiffness,
                 rest_position=j.rest_position,
@@ -76,6 +78,8 @@ def dump_world(world) -> dict:
         ),
         action_indices=np.asarray(world.action_indices),
         collision_overrides=[(i, j, c) for (i, j), c in world.collision_overrides.items()],
+        actuator_types={d: dict(a) for d, a in world.actuator_types.items()},
+        dynamic_constraints=[dict(c) for c in world.dynamic_constraints],
         skeletons=skels,
     )
 
@@ -207,3 +211,72 @@ def wedged_island():
     b[:, 2:] = np.array([0.2, 0.0, 0.0, 0.15, 0.0, 0.0])[:, None]
     mu[:, 2:] = np.array([0.0, 0.9, 0.9, 0.0, 0.9, 0.9])[:, None]
     return JaxMeta(**kw), LcpMeta(**kw), F, b, mu, np.zeros((6, W))
+
+
+def _same(a, b):
+    """Equal plan arrays, None for None, inf for inf."""
+    if a is None or b is None:
+        return a is None and b is None
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def assert_same_meta(tm, jm):
+    """Two LcpMeta: rows, bounds and knobs."""
+    for f in ("findex", "is_friction", "lo_const", "hi_const"):
+        assert _same(getattr(tm, f), getattr(jm, f)), f
+    for f in ("iterations", "tol", "ridge", "refine_rounds", "seed_pgs_sweeps",
+              "k_active", "solver"):
+        assert getattr(tm, f) == getattr(jm, f), f
+
+
+def assert_same_plan(te, je):
+    """A port BatchedEngine's static plan equals a JAX one's: the flattened
+    tree, the collider's slots, every row family, the LcpMeta with its
+    bounds, the islands and the contact cap."""
+    tf, jf = te.fw, je.fw
+    assert (tf.nb, tf.nv) == (jf.nb, jf.nv)
+    np.testing.assert_array_equal(tf.anc, jf.anc)
+    for a, b in zip(tf.G_body, jf.G_body):
+        np.testing.assert_allclose(a, b, rtol=1e-14, atol=1e-14)
+    for tj, jj in zip(tf.joints, jf.joints):
+        assert (tj.parent, tj.q_index, tj.num_dofs, tj.spec.joint_type) == (
+            jj.parent, jj.q_index, jj.num_dofs, jj.spec.joint_type)
+        for f in ("R_pj", "p_pj", "R_ci", "p_ci", "Ad_cj"):
+            np.testing.assert_allclose(getattr(tj, f), getattr(jj, f), atol=1e-14)
+        if jj.num_dofs:  # constant S, or S(q)
+            assert (tj.S_const is None) == (jj.S_const is None)
+            if jj.S_const is not None:
+                np.testing.assert_allclose(tj.S_const, jj.S_const, atol=1e-14)
+    tc, jc = te.bcollider, je.bcollider
+    assert [(s.kind, s.body_a, s.body_b, s.n_slots) for s in tc.slots] == [
+        (s.kind, s.body_a, s.body_b, s.n_slots) for s in jc.slots]
+    np.testing.assert_allclose(tc.mu, jc.mu)
+    np.testing.assert_allclose(tc.restitution, jc.restitution)
+    assert tc.num_contacts == jc.num_contacts
+    assert te.num_rows == je.num_rows and te.skel_slices == je.skel_slices
+    ta, ja = te.assembler, je.assembler
+    assert [(r.dof, r.sign, r.limit) for r in ta.limit_rows] == [
+        (r.dof, r.sign, r.limit) for r in ja.limit_rows]
+    assert ta.motor_rows == ja.motor_rows and ta.dyn_rows == ja.dyn_rows
+    assert_same_meta(te.meta, je.meta)
+    assert (te.islands is None) == (je.islands is None)
+    for (tr, td, tm), (jr, jd, jm) in zip(te.islands or (), je.islands or ()):
+        np.testing.assert_array_equal(tr, jr)
+        np.testing.assert_array_equal(td, jd)
+        assert_same_meta(tm, jm)
+    assert te.contact_cap == je.contact_cap
+
+
+def reference_pair(name):
+    """(JAX world, port world from its own model function, port world carried
+    across with world_from_arrays, q0) of a model both packages build:
+    jump_worm, catapult or inverted_double_pendulum."""
+    from nimblephysics_tpu import models as jm
+
+    from nimblephysics_tpu_torch import models as tm
+    from nimblephysics_tpu_torch.convert import world_from_arrays
+
+    jw, q0, _ = getattr(jm, name)()
+    tw, tq0, _ = getattr(tm, name)()
+    np.testing.assert_array_equal(tq0, q0)
+    return jw, tw, world_from_arrays(dump_world(jw)), np.asarray(q0, np.float64)
