@@ -47,8 +47,11 @@ Phases (any failure exits non-zero and prints no result line):
      versions, and a planted fault (a dropped contact) that must miss the
      limits; a seeded random LCP of the same shape against the plain
      version in float32 and float64; times, bounds, the launch plan,
-     resident warps per SM, registers and spills; and a 10-box stack's
-     capped LCP (n = 288, r = 60), which the kernel must refuse;
+     resident warps per SM, registers and spills; then the same on the
+     10- and 20-box legs' capped LCPs (contact_cap 96: n = 288, r = 60;
+     contact_cap 192: n = 576, r = 120), which take the kernel's wide
+     tier, and the refusal, with its numbers and no launch, of the 10-box
+     stack's uncapped LCP (n = 1320), past the wide tier's capacity;
  10. the box-stack rollouts (boxstack_bench.py's legs: 2 and 3 boxes, 5
      boxes under contact_cap 48; 4096 worlds, 100 warm-started steps,
      the default SolverConfig): env-steps/s, K1b launches (one a step),
@@ -63,7 +66,22 @@ Phases (any failure exits non-zero and prints no result line):
      the same world solved as one LCP (contact_islands off);
  13. a short VJP through remat_step on the 2-box stack (64 worlds x 4
      steps), card float32 against the CPU's float64 path;
+  then K1/K1b on jump_worm's, catapult's and the motor scenes' LCPs
+ (14), their rollouts (15), training on them (16) and card vs CPU on
+ their steps (17);
+ 18. the 10- and 20-box legs (2048 and 1024 worlds, 100 steps from
+     boxstack_bench.py's start): ms a step, env-steps/s, CUDA launches a
+     step, peak memory, one K1b launch a step and never the plain seed,
+     states finite and the stack standing; one step of 64 worlds, card vs
+     the CPU's float32 path with the card's seed;
+ 19. per-world body parameters (masses, COMs, scales, jittered as
+     tests/test_batched.py jitters them): a half-cheetah step card vs the
+     CPU's float32 path, a remat_step VJP in masses and scales card vs
+     the CPU's float64 path, and state_step with masses;
   then a JSON line per kernel and, last, {"ok": true, "device": ...}.
+
+`python3 chip_smoke.py --only 9,18,19` runs phases 1-2 and the listed
+ones of 9, 18 and 19, and prints no result line (for iterating on them).
 
 Matmuls run in full float32: TF32 is switched off for matmuls and cuDNN,
 since F = J L^-T and the pinned solves would otherwise keep only ~3
@@ -148,10 +166,37 @@ WIDE_BATCH = 8192
 BOX_CONTACTS = 48
 BOX_RANK = 18
 # The box-stack path: benchmarks/boxstack_bench.py's legs at 4096 worlds,
-# (boxes, contact_cap); the 10- and 20-box legs are beyond the kernel's
-# capacity (n <= 256, r <= 32) and only the refusal is checked.
+# (boxes, contact_cap); its 10- and 20-box legs are BOX_WIDE_LEGS below.
 BOX_LEGS = ((2, None), (3, None), (5, 48))
-TOO_WIDE_LEG = (10, 96)
+# The 10- and 20-box legs (boxes, contact_cap, worlds): their capped LCPs
+# (n = 288, r = 60 and n = 576, r = 120) take the kernel's wide tier. The
+# 10-box stack without its cap (n = 1320) is past the wide tier's
+# capacity (n <= 1024) and must be refused.
+BOX_WIDE_LEGS = ((10, 96, 2048), (20, 192, 1024))
+TOO_WIDE_LEG = (10, None)
+# Phase 18: one step of WIDE_CHECK_WORLDS worlds of each wide leg, card vs
+# the CPU's float32 path with the card's seed: impulses relative to
+# 1 + max|z|, v to 1 + max|v|. Read on the H100 (PERF.md): 2.6e-7 and
+# 8.5e-7 (10 boxes), 9.6e-7 and 1.4e-5 (20 boxes: the top box, 0.85 mm
+# wide, has rotational inertia 1.2e-7, so M^-1 amplifies the impulses'
+# rounding); the limits are ~10x the larger.
+WIDE_CHECK_WORLDS = 64
+WIDE_DZ_SAME = 1e-5
+WIDE_DV_SAME = 1.5e-4
+# Phase 19's step starts after STEPS steps under the jittered bodies, so
+# that it holds the contact LCP and K1b: at least this share of its
+# worlds must carry an impulse (phase 4's start read 4091/4096).
+BODY_ACTIVE_SHARE = 0.75
+# Phase 19's VJP from that state, card f32 against the CPU's float32 path
+# with the card's seed, |dg|/|g| in every world. Set before any reading;
+# read on the H100 (PERF.md): 2.5e-4 (the half-cheetah's ridged pinned
+# solve amplifies rounding in the mass directions). Against the CPU float64
+# path a world near a ladder rung's edge takes another rung in float32
+# (phase 5), and over 4 steps of contact that moves its gradient by O(1):
+# read on the H100, 39 of 64 worlds within GRAD_REL of it, for the card
+# and for the CPU's own float32 path alike, so that share is shown, not
+# held.
+BODY_VJP_SAME = 5e-4
 YAW_JITTER = 0.2
 # tests/test_stacks.py's standing limits (200 steps, float64): the top
 # box's height within 8e-3 of its start, every |v| below 5e-2.
@@ -266,16 +311,29 @@ def _on(dev, x):
 
 def ptxas_report(log):
     """{(rank width, rows per lane, polish): (registers, spill-store
-    bytes)} of each kernel instantiation, from nvcc -Xptxas -v."""
+    bytes)} of each kernel instantiation, from nvcc -Xptxas -v; the wide
+    tier's under rows per lane 0."""
     out = {}
     for chunk in log.split("Compiling entry function")[1:]:
         m = re.search(r"apgd_seed_kernelILi(\d+)ELi(\d+)ELb([01])E", chunk)
+        w = re.search(r"apgd_wide_kernelILi(\d+)ELb([01])E", chunk)
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores", chunk)
-        if m and regs:
-            out[int(m[1]), int(m[2]), m[3] == "1"] = (
-                int(regs[1]), int(spill[1]) if spill else 0)
+        key = ((int(m[1]), int(m[2]), m[3] == "1") if m
+               else (int(w[1]), 0, w[2] == "1") if w else None)
+        if key and regs:
+            out[key] = (int(regs[1]), int(spill[1]) if spill else 0)
     return out
+
+
+def plan_words(plan):
+    """The launch plan in words."""
+    if plan.tier == "wide":
+        return (f"wide tier, width {plan.rank_width}, a block of "
+                f"{plan.lanes_per_world} threads a world, F in the global "
+                f"workspace, {plan.smem_bytes} bytes of shared memory")
+    return (f"width {plan.rank_width}, {plan.rows_per_lane} rows a lane, "
+            f"{plan.worlds_per_block} worlds a block, {plan.smem_bytes} bytes")
 
 
 def contact_meta(contacts, iterations, sweeps):
@@ -361,11 +419,11 @@ def rollout_start(eng, q0, v0, rng, dev):
     return carry, u
 
 
-def rollout(eng, carry, u, steps):
+def rollout(eng, carry, u, steps, body_params=None):
     """`steps` warm-started steps from carry = (q, v, z)."""
     q, v, z = carry
     for _ in range(steps):
-        r = eng.step(q, v, u, z_warm=z)
+        r = eng.step(q, v, u, z_warm=z, body_params=body_params)
         q, v, z = r.q, r.v, r.impulses
     return q, v, z
 
@@ -637,6 +695,16 @@ def box_start(eng, q0, rng, dev, worlds=None):
     return carry, zeros.clone()
 
 
+def box_lcp(dev, boxes, cap, worlds, seed=SEED + 9, steps=5):
+    """The capped LCP of a box leg after `steps` steps from box_start at
+    `worlds` worlds: (meta, F, b, mu, z_warm), contiguous."""
+    _, q0, eng = make_box_engine(dev, boxes, cap)
+    carry, u = box_start(eng, q0, np.random.RandomState(seed), dev, worlds)
+    q, v, z = rollout(eng, carry, u, steps)
+    blocks, _ = eng.lcp_blocks(eng.lcp_problem(q, v, u), z)
+    return [x.detach().contiguous() if torch.is_tensor(x) else x for x in blocks[0]]
+
+
 def box_cases(dev):
     """(label, world, q0, engine) of the box-stack legs and the islands
     scene, float32 on the card."""
@@ -698,9 +766,7 @@ def engine_lcp_check(phase, label, meta, F, b, mu, zw, report, fault=None):
         print(f"{phase} ({label}, {'K1b' if sw else 'K1 '}): n={n} r={r} B={B}: "
               f"vs plain, max|dz| and max|dz|/(1+max|z|): warm start {wa:.3e}, "
               f"{wr:.3e}; cold {ca:.3e}, {cr:.3e} (tol {tol:g}); {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); width "
-              f"{plan.rank_width}, {plan.rows_per_lane} rows a lane, "
-              f"{plan.worlds_per_block} worlds a block, {plan.smem_bytes} bytes, "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); {plan_words(plan)}, "
               f"{warps} resident warps/SM, {regs} registers, {spill} bytes spilled")
         check(max(wr, cr) <= tol,
               f"{label}: {'K1b' if sw else 'K1'} disagrees with its plain version")
@@ -715,9 +781,9 @@ def engine_lcp_check(phase, label, meta, F, b, mu, zw, report, fault=None):
 
 def phase9(dev, report):
     """K1 and K1b on each box-stack leg's own LCP (the capped one on the
-    5-box leg, the first island's in the islands scene), with a dropped
-    contact as the planted fault, and a seeded random LCP on the same
-    rows and rank (random_check)."""
+    5-, 10- and 20-box legs, the first island's in the islands scene), with
+    a dropped contact as the planted fault, and a seeded random LCP on the
+    same rows and rank (random_check); the refusal past the wide tier."""
     from nimblephysics_tpu_torch.batched import lcp_cuda
 
     out = {}
@@ -731,8 +797,16 @@ def phase9(dev, report):
                                       ("a dropped contact", dropped_contact))
         random_check(f"phase 9 ({label})", meta, F.shape[1], F.shape[2], dev, SEED + 90)
 
-    # Past the kernel's capacity: the 10-box leg's capped LCP is refused,
-    # with its numbers, and nothing is launched.
+    # The wide tier: the 10- and 20-box legs' capped LCPs at their widths.
+    for boxes, cap, worlds in BOX_WIDE_LEGS:
+        label = f"box{boxes}_cap{cap}"
+        meta, F, b, mu, zw = box_lcp(dev, boxes, cap, worlds)
+        out[label] = engine_lcp_check("phase 9", label, meta, F, b, mu, zw, report,
+                                      ("a dropped contact", dropped_contact))
+        random_check(f"phase 9 ({label})", meta, F.shape[1], F.shape[2], dev, SEED + 90)
+
+    # Past the wide tier's capacity: the 10-box stack's uncapped LCP is
+    # refused, with its numbers, and nothing is launched.
     world, q0, eng = make_box_engine(dev, *TOO_WIDE_LEG)
     (q, v, z), u = box_start(eng, q0, np.random.RandomState(SEED), dev, worlds=64)
     before = lcp_cuda.apgd_seed.launches
@@ -741,10 +815,10 @@ def phase9(dev, report):
         msg = ""
     except NotImplementedError as e:
         msg = str(e)
-    print(f"phase 9 (box{TOO_WIDE_LEG[0]}_cap{TOO_WIDE_LEG[1]}): n={eng.meta_cap.n} "
-          f"r={world.num_dofs}: {msg or 'NOT REFUSED'}")
-    check(f"n={eng.meta_cap.n}" in msg and f"r={world.num_dofs}" in msg,
-          "the kernel did not refuse the 10-box LCP with its numbers")
+    print(f"phase 9 (box{TOO_WIDE_LEG[0]}, no cap): n={eng.meta.n} r={world.num_dofs}: "
+          f"{msg or 'NOT REFUSED'}")
+    check(f"n={eng.meta.n}" in msg and f"r={world.num_dofs}" in msg,
+          "the kernel did not refuse the uncapped 10-box LCP with its numbers")
     check(lcp_cuda.apgd_seed.launches == before, "a refused LCP launched the kernel")
     return out
 
@@ -790,30 +864,38 @@ def phase10(dev):
     return out
 
 
-def card_vs_cpu(world, state, worlds):
+def card_vs_cpu(world, state, worlds, body=None):
     """One step of the first `worlds` worlds on the card against the CPU
     float64 path (the port's own) and the CPU float32 path with the
     card's seed (the plain seed plus the projected-gradient step the card
-    re-attaches). Returns the comparison's numbers."""
+    re-attaches); body: per-world body parameters {key: numpy (NB, ...,
+    B)}. Returns the comparison's numbers."""
     from nimblephysics_tpu_torch.batched import BatchedEngine
     from nimblephysics_tpu_torch.batched import lcp_cuda
 
     eng, (q, v, z, u) = state[0], (x[:, :worlds].contiguous() for x in state[1:])
 
+    def bp(device, dtype):
+        return None if body is None else {
+            k: torch.as_tensor(x[..., :worlds], dtype=dtype, device=device)
+            for k, x in body.items()}
+
     def card_seed_plain(meta, F, b, mu, z0, cfm=0.0, z_kernel=None):
         return lcp_cuda.pgd_step(meta, F, cfm, b, mu, lcp_cuda.seed_plain(meta, F, cfm, b, mu, z0))
 
-    g = eng.step(q, v, u, z_warm=z)
+    g = eng.step(q, v, u, z_warm=z, body_params=bp(q.device, q.dtype))
     gq, gv = g.q.double().cpu(), g.v.double().cpu()
     cpu64 = BatchedEngine(world, device="cpu", dtype=torch.float64)
     a64 = [x.double().cpu() for x in (q, v, u, z)]
-    c64 = cpu64.step(*a64[:3], z_warm=a64[3])
+    c64 = cpu64.step(*a64[:3], z_warm=a64[3], body_params=bp("cpu", torch.float64))
     with mock.patch.object(lcp_cuda, "apgd_seed", card_seed_plain):
         c32 = BatchedEngine(world, device="cpu", dtype=torch.float32).step(
-            *(x.cpu() for x in (q, v, u)), z_warm=z.cpu())
+            *(x.cpu() for x in (q, v, u)), z_warm=z.cpu(),
+            body_params=bp("cpu", torch.float32))
     dv64 = (gv - c64.v).abs().amax(dim=0)
     dv_cpu = (c32.v.double() - c64.v).abs().amax(dim=0)
     return dict(
+        active=int((g.impulses.abs().amax(dim=0) > 0).sum()),
         dq_rel=float(((gq - c64.q).abs() / (1.0 + c64.q.abs())).max()),
         dz32=float(((g.impulses.cpu() - c32.impulses).abs().amax(dim=0)
                     / (1.0 + c32.impulses.abs().amax(dim=0))).max()),
@@ -1565,7 +1647,242 @@ def slice_kernel_entries(k14, runs):
     return out
 
 
+# -- the 10- and 20-box legs and body parameters (phases 18-19) ---------------
+
+
+def phase18(dev):
+    """The wide legs: 100 steps from box_start at their widths, one K1b
+    launch a step and never the plain seed; finite, standing; one step
+    card vs the CPU's float32 path with the card's seed."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    out = {}
+    for boxes, cap, worlds in BOX_WIDE_LEGS:
+        label = f"box{boxes}_cap{cap}"
+        world, q0, eng = make_box_engine(dev, boxes, cap)
+        carry, u = box_start(eng, q0, np.random.RandomState(SEED + 18), dev, worlds)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        lcp_cuda.apgd_seed.launches = 0
+        with mock.patch.object(lcp_cuda, "seed_plain", _forbidden), \
+                mock.patch.object(lcp_cuda, "apgd_plain", _forbidden):
+            t0 = time.perf_counter()
+            carry = rollout(eng, carry, u, STEPS)
+            torch.cuda.synchronize()
+            dt_s = time.perf_counter() - t0
+        launches = lcp_cuda.apgd_seed.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        qf, vf, zf = carry
+        finite = all(bool(torch.isfinite(x).all()) for x in carry)
+        per_step = count_launches(lambda: eng.step(qf, vf, u, z_warm=zf))
+        top = len(q0) - 1
+        dz_w = (qf[top] - float(q0[top])).abs()
+        v_w = vf.abs().amax(dim=0)
+        dz, vmax = float(dz_w.max()), float(v_w.max())
+        heights = qf[5::6] - torch.as_tensor(q0[5::6], dtype=qf.dtype, device=dev)[:, None]
+        d = eng.lcp_problem(qf, vf, u).contact_depths
+        live = eng._contact_valid(d).sum(dim=0)
+        print(f"phase 18 ({label}): {STEPS} steps x {worlds} worlds: "
+              f"{dt_s / STEPS * 1e3:.3f} ms/step, {worlds * STEPS / dt_s:.1f} env-steps/s; "
+              f"K1b launches {launches}; CUDA kernel launches per step {per_step}; peak "
+              f"memory {peak / 2**20:.1f} MiB; LCP n={eng.num_rows} solved "
+              f"n={eng.meta_cap.n} r={world.num_dofs}; finite {finite}; top box max|dz| "
+              f"{dz:.3e} (limit {STAND_DZ:g}, worlds beyond {int((dz_w > STAND_DZ).sum())}), "
+              f"max|v| {vmax:.3e} (limit {STAND_V:g}, worlds beyond "
+              f"{int((v_w >= STAND_V).sum())}); per box, max|dz| "
+              f"{[round(float(x), 6) for x in heights.abs().amax(dim=1)]}; worlds with "
+              f"more penetrating slots than the cap ({cap}): "
+              f"{int((live > cap).sum())}/{worlds}, most {int(live.max())}")
+        check(launches == STEPS, f"{label}: K1b launched {launches} times in {STEPS} steps")
+        check(finite, f"{label}: state not finite")
+        check(dz <= STAND_DZ, f"{label}: the top box moved {dz:.3e} from its start")
+        check(vmax < STAND_V, f"{label}: the stack is moving (max|v| {vmax:.3e})")
+        c = card_vs_cpu(world, (eng, qf, vf, zf, u), WIDE_CHECK_WORLDS)
+        print(f"phase 18 ({label}): {WIDE_CHECK_WORLDS} worlds, one step: card vs CPU f32 "
+              f"with the card's seed: max|dz|/(1+max|z|) {c['dz32']:.3e} (bound "
+              f"{WIDE_DZ_SAME:g}), max|dv|/(1+max|v|) {c['dv32']:.3e} (bound "
+              f"{WIDE_DV_SAME:g}); card vs CPU f64: max|dq|/(1+|q|) {c['dq_rel']:.3e} "
+              f"(bound {DQ_TOL:g}), max|dv| {float(c['dv64'].max()):.3e}")
+        check(c["dz32"] <= WIDE_DZ_SAME, f"{label}: card impulses disagree with the CPU's float32 path")
+        check(c["dv32"] <= WIDE_DV_SAME, f"{label}: card v disagrees with the CPU's float32 path")
+        check(c["dq_rel"] <= DQ_TOL, f"{label}: card q disagrees with the CPU f64 path")
+        out[label] = dict(launches=launches, per_step=per_step, peak=peak,
+                          env_steps_s=worlds * STEPS / dt_s)
+    return out
+
+
+def body_jitter(world, rng, worlds):
+    """tests/test_batched.py's per-world body parameters: masses x (1 + 0.1
+    U), COMs + 0.01 N(0, 1), scales 1 + 0.05 U; numpy (NB, ..., worlds)."""
+    bodies = [b for s in world.skeletons for b in s.bodies]
+    nb = len(bodies)
+    return dict(
+        masses=np.array([b.mass for b in bodies])[:, None] * (1.0 + 0.1 * rng.rand(nb, worlds)),
+        coms=np.stack([b.com for b in bodies])[:, :, None] + 0.01 * rng.randn(nb, 3, worlds),
+        scales=1.0 + 0.05 * rng.rand(nb, 3, worlds))
+
+
+def card_seed_detached(meta, F, b, mu, z0, cfm=0.0, z_kernel=None):
+    """The card's seed on the CPU with its gradient: the plain seed on
+    detached inputs in the kernel's place, and the projected-gradient step
+    apgd_seed re-attaches."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    z = lcp_cuda.seed_plain(meta, F.detach(), cfm, b.detach(), mu.detach(), z0.detach())
+    return lcp_cuda.pgd_step(meta, F, cfm, b, mu, z)
+
+
+def body_vjp(world, device, dtype, start, body):
+    """d/d(masses, scales) of a seeded weighting of (q, v) after VJP_STEPS
+    remat_steps of the default config from start = (q, v, z or None, u)
+    with per-world body parameters (numpy, as body_jitter gives them).
+    Returns the gradient per world ((NB + 3 NB, worlds), float64 on the
+    CPU) and the worlds with impulses after each step."""
+    from nimblephysics_tpu_torch.simulation import SolverConfig
+
+    eng = make_engine(device, SolverConfig(), dtype=dtype)[3]
+    worlds = start[0].shape[1]
+    q, v, z, u = (None if x is None else x.to(device=device, dtype=dtype) for x in start)
+    m, sc = (torch.as_tensor(body[k], dtype=dtype, device=device).requires_grad_()
+             for k in ("masses", "scales"))
+    bp = {"masses": m, "coms": torch.as_tensor(body["coms"], dtype=dtype, device=device),
+          "scales": sc}
+    rng = np.random.RandomState(SEED + 192)
+    wq, wv = (torch.as_tensor(rng.randn(world.num_dofs, worlds), dtype=dtype, device=device)
+              for _ in range(2))
+    active = []
+    for _ in range(VJP_STEPS):
+        r = eng.remat_step(q, v, u, z_warm=z, body_params=bp)
+        q, v, z = r.q, r.v, r.impulses
+        active.append(int((z.detach().abs().amax(dim=0) > 0).sum()))
+    g = torch.autograd.grad((wq * q).sum() + (wv * v).sum(), (m, sc))
+    return torch.cat([g[0], g[1].reshape(-1, worlds)]).double().cpu(), active
+
+
+def phase19(dev):
+    """Per-world body parameters on the card, from a state settled under
+    them: a half-cheetah step with masses, COMs and scales against the CPU
+    (phase 5's limits); a VJP through VJP_STEPS remat_steps in masses and
+    scales from bench.py's start against the CPU's float64 path (phase 8's
+    limits) and from the settled state against the CPU's float32 path;
+    and state_step with masses."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+    from nimblephysics_tpu_torch.simulation import SolverConfig
+
+    world, q0, v0, eng = make_engine(dev, SolverConfig())
+    rng = np.random.RandomState(SEED + 19)
+    carry, u = rollout_start(eng, q0, v0, rng, dev)
+    body = body_jitter(world, rng, BATCH)
+    # Settled under the jittered bodies, as phase 5's start is: the step
+    # below goes through the contact LCP and K1b.
+    carry = rollout(eng, carry, u, STEPS, {k: _on(dev, x) for k, x in body.items()})
+    c = card_vs_cpu(world, (eng, *carry, u), CHECK_WORLDS, body)
+    # The same step with the nominal bodies, for scale (not held).
+    c0 = card_vs_cpu(world, (eng, *carry, u), CHECK_WORLDS)
+    print(f"phase 19 (step): {CHECK_WORLDS} worlds, per-world masses, COMs and scales, "
+          f"after {STEPS} steps: worlds with impulses {c['active']}/{CHECK_WORLDS} (bound "
+          f"{BODY_ACTIVE_SHARE:g} of them); "
+          f"card vs CPU f32 with the card's seed: max|dz|/(1+max|z|) {c['dz32']:.3e} "
+          f"(bound {DZ_SAME:g}), max|dv|/(1+max|v|) {c['dv32']:.3e} (bound {DV_SAME:g}); "
+          f"card vs CPU f64: max|dq|/(1+|q|) {c['dq_rel']:.3e} (bound {DQ_TOL:g}), "
+          f"max|dv| {float(c['dv64'].max()):.3e}; the same step with the nominal bodies: "
+          f"card vs CPU f32 {c0['dz32']:.3e} and {c0['dv32']:.3e}")
+    check(c["active"] >= BODY_ACTIVE_SHARE * CHECK_WORLDS,
+          "body parameters: too few worlds in contact for the step to hold the LCP")
+    check(c["dz32"] <= DZ_SAME, "body parameters: card impulses disagree with the CPU's float32 path")
+    check(c["dv32"] <= DV_SAME, "body parameters: card v disagrees with the CPU's float32 path")
+    check(c["dq_rel"] <= DQ_TOL, "body parameters: card q disagrees with the CPU f64 path")
+
+    # The VJP from bench.py's start (phase 8's), card f32 vs CPU f64.
+    r2 = np.random.RandomState(SEED + 191)
+    start_body = body_jitter(world, r2, GRAD_WORLDS)
+    start_u = eng.action_to_forces(_on(dev, 0.5 * r2.randn(world.action_size, GRAD_WORLDS)))
+    states, _ = train_start(q0, v0, np.random.RandomState(SEED + 2), dev, GRAD_WORLDS)
+    nv = world.num_dofs
+    start = (states[:nv], states[nv:], None, start_u)
+    g, active = body_vjp(world, dev, torch.float32, start, start_body)
+    c64, _ = body_vjp(world, "cpu", torch.float64, start, start_body)
+    cos = cosine(g.reshape(-1), c64.reshape(-1))
+    rel = float((g - c64).norm() / c64.norm())
+    print(f"phase 19 (VJP from bench.py's start): {GRAD_WORLDS} worlds x {VJP_STEPS} "
+          f"remat_steps, d/d(masses, scales): card f32 vs CPU f64: cosine {cos:.8f} (bound "
+          f"{GRAD_COS:g}), |dg|/|g| {rel:.3e} (bound {GRAD_REL:g}), |g| "
+          f"{float(c64.norm()):.4e}; worlds with impulses at each step {active}")
+    check(bool(torch.isfinite(g).all()), "body-parameter VJP not finite")
+    check(cos >= GRAD_COS and rel <= GRAD_REL, "card body-parameter VJP far from the CPU's")
+
+    # The VJP from the settled state above: card vs the CPU's float32 path
+    # with the card's seed, world by world; the CPU's float64 path shown.
+    settled = tuple(x[:, :GRAD_WORLDS] for x in (*carry, u))
+    sbody = {k: x[..., :GRAD_WORLDS] for k, x in body.items()}
+    g, active = body_vjp(world, dev, torch.float32, settled, sbody)
+    with mock.patch.object(lcp_cuda, "apgd_seed", card_seed_detached):
+        c32, _ = body_vjp(world, "cpu", torch.float32, settled, sbody)
+    c64, _ = body_vjp(world, "cpu", torch.float64, settled, sbody)
+
+    def per_world(a, b):
+        return (a - b).norm(dim=0) / b.norm(dim=0)
+
+    same = per_world(g, c32)
+    near64 = float((per_world(g, c64) <= GRAD_REL).double().mean())
+    cpu_near64 = float((per_world(c32, c64) <= GRAD_REL).double().mean())
+    print(f"phase 19 (VJP from the settled state): {GRAD_WORLDS} worlds x {VJP_STEPS} "
+          f"remat_steps, worlds with impulses at each step {active} (bound "
+          f"{BODY_ACTIVE_SHARE:g} of them); card f32 vs CPU f32 with the card's seed, "
+          f"per world: max |dg|/|g| {float(same.max()):.3e} (bound {BODY_VJP_SAME:g}); "
+          f"share of worlds within {GRAD_REL:g} of the CPU f64 path: card {near64:.4f}, "
+          f"the CPU's own f32 path {cpu_near64:.4f}")
+    check(bool(torch.isfinite(g).all()), "settled body-parameter VJP not finite")
+    check(min(active) >= BODY_ACTIVE_SHARE * GRAD_WORLDS,
+          "body-parameter VJP: too few worlds in contact")
+    check(float(same.max()) <= BODY_VJP_SAME,
+          "settled body-parameter VJP: card disagrees with the CPU's float32 path")
+
+    qs, vs = (x[:, :CHECK_WORLDS].contiguous() for x in carry[:2])
+    act = _on(dev, rng.randn(world.action_size, CHECK_WORLDS))
+    masses = body["masses"][:, :CHECK_WORLDS]
+    got = eng.state_step(torch.cat([qs, vs]), act, masses=_on(dev, masses))
+    want = make_engine("cpu", SolverConfig(), dtype=torch.float64)[3].state_step(
+        torch.cat([qs, vs]).double().cpu(), act.double().cpu(),
+        masses=torch.as_tensor(masses, dtype=torch.float64))
+    dq = float(((got[:nv].double().cpu() - want[:nv]).abs() / (1.0 + want[:nv].abs())).max())
+    plain = eng.state_step(torch.cat([qs, vs]), act)
+    moved = float((plain[nv:] - got[nv:]).abs().max())
+    print(f"phase 19 (state_step): {CHECK_WORLDS} worlds with per-world masses: q card vs "
+          f"CPU f64 max|dq|/(1+|q|) {dq:.3e} (bound {DQ_TOL:g}); v moved by the masses "
+          f"{moved:.3e}")
+    check(bool(torch.isfinite(got).all()), "state_step with masses not finite")
+    check(dq <= DQ_TOL, "state_step with masses: card q disagrees with the CPU f64 path")
+    check(moved > 0, "state_step ignored its masses")
+
+
+def wide_kernel_entries(k9, runs):
+    """The kernels line's entries for K1b on the 10- and 20-box capped
+    LCPs: launches from the phase-18 rollouts, phase 9's numbers."""
+    out = []
+    for label, run in runs.items():
+        k = k9[label]["k1b"]
+        out.append({
+            "name": f"apgd_seed_pgs/{label}",
+            "route": "cuda",
+            "source": "nimblephysics_tpu_torch/csrc/apgd_seed.cu",
+            "replaces": "nimblephysics_tpu/batched/lcp_pallas.py:118",
+            "launches": run["launches"],
+            "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"],
+            "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"],
+            "library_ms": None,
+        })
+    return out
+
+
 def main() -> int:
+    only = set()
+    if len(sys.argv) > 2 and sys.argv[1] == "--only":
+        only = {int(x) for x in sys.argv[2].split(",")}
+        check(only <= {9, 18, 19}, "--only takes phases 9, 18 and 19")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1594,11 +1911,22 @@ def main() -> int:
     lib_path, build_s, log = lcp_cuda.build(verbose=True)
     print(f"phase 2: built {lib_path.name} in {build_s:.1f} s")
     report = ptxas_report(log)
-    check(len(report) == 2 * len(lcp_cuda.INSTANCES),
+    check(len(report) == 2 * (len(lcp_cuda.INSTANCES) + len(lcp_cuda.WIDE_WIDTHS)),
           "ptxas did not report every kernel instantiation")
     for (width, rows, polish), (regs, spill) in sorted(report.items()):
-        print(f"  ptxas: width {width:2d}, {rows} rows a lane, "
+        tier = f"{rows} rows a lane" if rows else "wide tier   "
+        print(f"  ptxas: width {width:3d}, {tier}, "
               f"{'K1b' if polish else 'K1 '}: {regs} registers, {spill} bytes spilled")
+    if only:
+        k9 = phase9(dev, report) if 9 in only else None
+        runs = phase18(dev) if 18 in only else None
+        if 19 in only:
+            phase19(dev)
+        if k9 and runs:
+            print(json.dumps({"kernels": wide_kernel_entries(k9, runs)}))
+        print(f"chip_smoke: phases 1, 2 and {sorted(only)} passed; no result line "
+              "for a partial run")
+        return 3
 
     world, q0, v0, eng = make_engine(dev)
     meta = eng.meta
@@ -1728,6 +2056,10 @@ def main() -> int:
     phase16(dev)
     phase17(dev, runs)
 
+    # 18-19. The 10- and 20-box legs; body parameters.
+    wide = phase18(dev)
+    phase19(dev)
+
     kernel = {
         "name": "apgd_seed",
         "route": "cuda",
@@ -1742,7 +2074,8 @@ def main() -> int:
         "library_ms": None,
     }
     print(json.dumps({"kernels": [kernel, k1b, *box_kernel_entries(k9, legs, isl),
-                                  *slice_kernel_entries(k14, runs)]}))
+                                  *slice_kernel_entries(k14, runs),
+                                  *wide_kernel_entries(k9, wide)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

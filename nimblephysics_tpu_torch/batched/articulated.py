@@ -10,7 +10,11 @@ type of its batched engine but the spline-driven ones:
   * ball and free: rotation coordinates w with R = exp(w), S through the
     right Jacobian of SO(3), exp-map position updates.
 Same trailing-batch layout: q, v (nv, B); body rotations (3, 3, B); W
-(6, nv, B).
+(6, nv, B). Per-world body parameters enter as the JAX package's do: the
+spatial inertias G_list of bias_forces and mass_matrix_blocks, and the
+body scales of fk and bias_forces, which scale both joint anchors (T_pj's
+translation with the parent body, T_cj's with the child) and so S and
+its rate through Ad(T_cj).
 
 The structural identity is the reference's: the world-frame Jacobian
 column of dof d is Ad(T_w,joint(d)) S_d, the same for every body that
@@ -113,7 +117,10 @@ class _JointPlan:
     R_ci: np.ndarray  # T_cj^-1 rotation
     p_ci: np.ndarray
     Ad_cj: np.ndarray  # (6, 6) Ad(T_cj)
+    R_cj: np.ndarray  # T_cj rotation and translation (scaled anchors)
+    p_cj: np.ndarray
     S_const: Optional[np.ndarray]  # (6, nd) = Ad(T_cj) S_joint, None if S(q)
+    S_local: Optional[np.ndarray]  # (6, nd) joint-frame S of a constant-S joint
     rot: tuple = ()  # rotation factors (axis, local dof), see _factors
     trans: tuple = ()  # translation terms (vector, local dof)
 
@@ -137,7 +144,7 @@ class FlatWorld:
                     )
                 T_ci = np.linalg.inv(j.T_cj)
                 rot, trans = _factors(j)
-                S_const = None
+                S_const = S_local = None
                 if j.num_dofs and j.joint_type in _CONST_S_TYPES:
                     S_local = np.zeros((6, j.num_dofs))
                     for a, d in rot:
@@ -156,7 +163,10 @@ class FlatWorld:
                         R_ci=T_ci[:3, :3].copy(),
                         p_ci=T_ci[:3, 3].copy(),
                         Ad_cj=_Ad_np(j.T_cj),
+                        R_cj=j.T_cj[:3, :3].copy(),
+                        p_cj=j.T_cj[:3, 3].copy(),
                         S_const=S_const,
+                        S_local=S_local,
                         rot=tuple(rot),
                         trans=tuple(trans),
                     )
@@ -165,6 +175,8 @@ class FlatWorld:
                 self.G_body.append(
                     _spatial_inertia_np(b.mass, b.com, b.inertia)
                 )
+        # Flat body specs (mass, com, inertia), for body-parameter overrides.
+        self.body_specs = [b for skel in world.skeletons for b in skel.bodies]
         self.nb = len(self.joints)
         self.nv = world.num_dofs
 
@@ -176,6 +188,13 @@ class FlatWorld:
                 jk = self.joints[k]
                 self.anc[bi, jk.q_index : jk.q_index + jk.num_dofs] = 1.0
                 k = jk.parent
+        # The root body of each body's tree.
+        self.root_of_body = np.zeros(self.nb, dtype=np.int64)
+        for bi in range(self.nb):
+            k = bi
+            while self.joints[k].parent >= 0:
+                k = self.joints[k].parent
+            self.root_of_body[bi] = k
         # The body each dof's joint carries.
         self.body_of_dof = np.zeros(self.nv, dtype=np.int64)
         for bi, jp in enumerate(self.joints):
@@ -219,9 +238,11 @@ class FlatWorld:
                 vec_t[s, bi], trans_dof[s, bi] = a, jp.q_index + d
         K = np.stack([np.stack([_skew_np(a) for a in ar]) for ar in axis_r])
         S_dof = np.zeros((nv, 6))
+        S_loc = np.zeros((nv, 6))
         for jp in self.joints:
             if jp.S_const is not None:
                 S_dof[jp.q_index : jp.q_index + jp.num_dofs] = jp.S_const.T
+                S_loc[jp.q_index : jp.q_index + jp.num_dofs] = jp.S_local.T
         # desc[p, c] = 1 iff body c is p or one of p's descendants.
         desc = np.zeros((nb, nb))
         for c in range(nb):
@@ -232,6 +253,8 @@ class FlatWorld:
         mask = self.anc[self.body_of_dof].T > 0  # (nv, nv): a moves body(d)
         ex = [self.joints[bi] for bi in self.exp_joints]
         free = [jp.spec.joint_type == J.FREE for jp in ex]
+        floating = [float(self.joints[r].spec.joint_type in (J.FREE, J.EULER_FREE))
+                    for r in self.root_of_body]
         # Joint k's column col of its 6x6 [[Jr, 0], [0, exp(-w)]] is row
         # 6k + col of the joints' stacked columns; a ball joint keeps 3.
         exp_cols = [6 * k + col for k, jp in enumerate(ex)
@@ -262,6 +285,17 @@ class FlatWorld:
             vec_t=t(vec_t)[..., None],  # (NT, nb, 3, 1)
             trans_dof=idx(trans_dof),  # (NT, nb)
             S_dof=t(S_dof)[..., None],  # (nv, 6, 1)
+            S_loc=t(S_loc)[..., None],  # (nv, 6, 1) joint-frame S, constant-S dofs
+            R_cj=t(np.stack([jp.R_cj for jp in self.joints]))[..., None],
+            p_cj=t(np.stack([jp.p_cj for jp in self.joints]))[..., None],
+            # Each body's parent, the world (-1) as index nb (a row of ones
+            # appended to the scales), and each body's tree root.
+            parent=idx([jp.parent if jp.parent >= 0 else nb for jp in self.joints]),
+            root_of_body=idx(self.root_of_body),
+            # 1 for a body whose tree floats (a free or euler_free root
+            # joint), else 0; None when no tree floats (see
+            # mass_matrix_blocks).
+            floating=(t(floating)[:, None, None] if any(floating) else None),
             S=[None if jp.S_const is None else t(jp.S_const)[..., None]
                for jp in self.joints],  # per joint (6, nd, 1)
             G=t(np.stack(self.G_body))[..., None],  # (nb, 6, 6, 1)
@@ -312,19 +346,33 @@ def _pad(x):
     return torch.cat([x, x.new_zeros(1, x.shape[-1])], dim=0)
 
 
-def _exp_S(c, q):
+def _scaled_Ad(c, scales):
+    """Ad(T_cj) of every joint with its anchor translation scaled by the
+    child body's scale (GROUP_SCALES): [[R, 0], [[p s]x R, R]], (nb, 6, 6,
+    B) for scales (nb, 3, B) (the JAX package's _scaled_Ad_cj)."""
+    p = c.p_cj * scales
+    R = c.R_cj.expand(-1, -1, -1, p.shape[-1])
+    px = bl.skew(p.transpose(0, 1)).permute(2, 0, 1, 3)
+    pR = torch.einsum("nijb,njkb->nikb", px, R)
+    z = torch.zeros_like(R)
+    return torch.cat([torch.cat([R, z], dim=2), torch.cat([pR, R], dim=2)], dim=1)
+
+
+def _exp_S(c, q, Ad=None):
     """Ad(T_cj) [[Jr(w), 0], [0, exp(-w)]] of every ball and free joint,
-    (k, 6, 6, B); a ball joint's S is its first three columns."""
+    (k, 6, 6, B); a ball joint's S is its first three columns. Ad: every
+    joint's scaled Ad(T_cj) (_scaled_Ad), else the plan's."""
     k = len(c.exp_bodies)
     w = _flat(q[c.exp_rot])
     Jr = bl.so3_right_jacobian_b(w)
     z = torch.zeros_like(Jr)
     Sj = torch.cat([torch.cat([Jr, z], dim=1),
                     torch.cat([z, bl.exp_so3(-w)], dim=1)], dim=0)
-    return torch.einsum("kijb,kjlb->kilb", c.exp_Ad, _unflat(Sj, k))
+    Ad = c.exp_Ad if Ad is None else Ad[c.exp_bodies]
+    return torch.einsum("kijb,kjlb->kilb", Ad, _unflat(Sj, k))
 
 
-def _exp_S_dot_dq(c, q, v):
+def _exp_S_dot_dq(c, q, v, Ad=None):
     """(d/dt S(q)) dq of every ball and free joint along dq = v, (k, 6, B):
     the JAX package's jvp of q -> S(q) dq, in closed form.
 
@@ -345,7 +393,8 @@ def _exp_S_dot_dq(c, q, v):
     bot = (-da * s * wx - a * dx + db * s * bl.cross(w, wx)
            + b * (bl.cross(d, wx) + bl.cross(w, dx)))
     sd = _unflat(torch.cat([top, bot]), k)  # (k, 6, B)
-    return torch.einsum("kijb,kjb->kib", c.exp_Ad, sd)
+    Ad = c.exp_Ad if Ad is None else Ad[c.exp_bodies]
+    return torch.einsum("kijb,kjb->kib", Ad, sd)
 
 
 def _joint_Q(c, q):
@@ -373,14 +422,20 @@ def _joint_Q(c, q):
     return Rq, pq, Rs
 
 
-def _rel_transforms(c, q):
+def _rel_transforms(c, q, scales=None):
     """T_pj Q(q) T_cj^-1 for every joint at once: (nb, 3, 3, B), (nb, 3, B),
-    with Q(q) and its rotation factors (_joint_Q)."""
+    with Q(q) and its rotation factors (_joint_Q). scales (nb, 3, B or 1):
+    T_pj's translation scales with the parent body, T_cj's with the child
+    (the JAX package's _rel_transform)."""
     Rq, pq, Rs = _joint_Q(c, q)
     R1 = torch.einsum("nijb,njkb->nikb", Rq, c.R_ci)
-    p1 = torch.einsum("nijb,njb->nib", Rq, c.p_ci) + pq
+    p_ci, p_pj = c.p_ci, c.p_pj
+    if scales is not None:
+        p_ci = -torch.einsum("nijb,njb->nib", c.R_ci, c.p_cj * scales)
+        p_pj = p_pj * torch.cat([scales, torch.ones_like(scales[:1])])[c.parent]
+    p1 = torch.einsum("nijb,njb->nib", Rq, p_ci) + pq
     R = torch.einsum("nijb,njkb->nikb", c.R_pj, R1)
-    p = torch.einsum("nijb,njb->nib", c.R_pj, p1) + c.p_pj
+    p = torch.einsum("nijb,njb->nib", c.R_pj, p1) + p_pj
     return R, p, Rq, Rs
 
 
@@ -403,18 +458,19 @@ def _chain_cols(c, Rq, Rs):
     return ang, lin
 
 
-def _chain_S(c, Rq, Rs):
+def _chain_S(c, Rq, Rs, Ad=None):
     """Ad(T_cj) S_joint(q) of every chain joint as (nd, 6, B) columns in
-    the order of c.ch_dofs."""
+    the order of c.ch_dofs (Ad as in _exp_S)."""
     ang, lin = _chain_cols(c, Rq, Rs)
     zero = torch.zeros_like(ang[0])
     cols = torch.stack([torch.cat([a, zero], dim=1) for a in ang]
                        + [torch.cat([zero, x], dim=1) for x in lin], dim=1)
-    cols = torch.einsum("kijb,ksjb->ksib", c.ch_Ad, cols)  # (k, slots, 6, B)
+    Ad = c.ch_Ad if Ad is None else Ad[c.ch_bodies]
+    cols = torch.einsum("kijb,ksjb->ksib", Ad, cols)  # (k, slots, 6, B)
     return cols.reshape(-1, 6, Rq.shape[-1])[c.ch_cols]
 
 
-def _chain_S_dot_dq(c, q, v):
+def _chain_S_dot_dq(c, q, v, Ad=None):
     """(d/dt S(q)) dq of every chain joint along dq = v, (k, 6, B): the JAX
     package's jvp of q -> S(q) dq, in closed form. With the angular
     columns c_s and w_s = dq_s c_s, d/dt c_s = -(sum_{m > s} w_m) x c_s;
@@ -431,20 +487,23 @@ def _chain_S_dot_dq(c, q, v):
         omega = omega + w
     ell = sum(dq[:, None, :] * x for dq, x in zip(v_pad[c.ch_trans_dof], lin))
     sd = torch.cat([ang_dot, -torch.cross(omega, ell, dim=1)], dim=1)
-    return torch.einsum("kijb,kjb->kib", c.ch_Ad, sd)
+    Ad = c.ch_Ad if Ad is None else Ad[c.ch_bodies]
+    return torch.einsum("kijb,kjb->kib", Ad, sd)
 
 
-def fk(fw: FlatWorld, q):
+def fk(fw: FlatWorld, q, scales=None):
     """FK + world Jacobian columns.
 
+    scales: optional (nb, 3, B) or (nb, 3, 1) per-body GROUP_SCALES,
+    which scale the joint anchors and so S (_scaled_Ad).
     Returns (R_wb list[(3,3,B)], p_wb list[(3,B)], W (6, nv, B), S_list
-    (child-frame relative Jacobians: (6, nd, 1) where S is constant,
-    (6, nd, B) for chain, ball and free joints, None without dofs), rels
-    list[(R, p)]) as the JAX package's fk does.
+    (child-frame relative Jacobians: (6, nd, 1) where S is constant and
+    unscaled, (6, nd, B) for chain, ball and free joints, None without
+    dofs), rels list[(R, p)]) as the JAX package's fk does.
     """
     c = fw.tensors(q.dtype, q.device)
     B = q.shape[-1]
-    Rr, pr, Rq, Rs = _rel_transforms(c, q)
+    Rr, pr, Rq, Rs = _rel_transforms(c, q, scales)
     R_wb: List = []
     p_wb: List = []
     for bi, jp in enumerate(fw.joints):
@@ -458,14 +517,19 @@ def fk(fw: FlatWorld, q):
     rels = [(Rr[bi], pr[bi]) for bi in range(fw.nb)]
     S = c.S_dof  # (nv, 6, 1)
     S_list = c.S
+    Ad = None
     q_dep = fw.exp_joints + fw.chain_joints
+    if scales is not None:
+        Ad = _scaled_Ad(c, scales)
+        S = torch.einsum("dijb,djb->dib", Ad[c.body_of_dof], c.S_loc)
+        q_dep = [bi for bi, jp in enumerate(fw.joints) if jp.num_dofs]
     if q_dep:
         S = S.expand(-1, -1, B)
         if fw.exp_joints:
-            cols = _exp_S(c, q).permute(0, 2, 1, 3).reshape(-1, 6, B)
+            cols = _exp_S(c, q, Ad).permute(0, 2, 1, 3).reshape(-1, 6, B)
             S = S.index_copy(0, c.exp_dofs, cols[c.exp_cols])
         if fw.chain_joints:
-            S = S.index_copy(0, c.ch_dofs, _chain_S(c, Rq, Rs))
+            S = S.index_copy(0, c.ch_dofs, _chain_S(c, Rq, Rs, Ad))
         S_list = list(S_list)
         for bi in q_dep:
             jp = fw.joints[bi]
@@ -497,21 +561,24 @@ def _dad_transmit(R, p, F):
     return torch.cat([bl.mv(R, m) + bl.cross(p, Rf), Rf])
 
 
-def bias_forces(fw: FlatWorld, q, v, rels, S_list):
+def bias_forces(fw: FlatWorld, q, v, rels, S_list, G_list=None, scales=None):
     """C(q, v) including the world's gravity by batched RNEA at zero
     acceleration.
 
     The S-dot term is zero for constant-S joints, _chain_S_dot_dq for
-    chain joints and _exp_S_dot_dq for ball and free ones. Body-frame spatial recursion as in
-    dynamics/skeleton.bias_forces of the JAX package.
+    chain joints and _exp_S_dot_dq for ball and free ones. Body-frame
+    spatial recursion as in dynamics/skeleton.bias_forces of the JAX
+    package. G_list: optional per-body (6, 6, B) spatial inertias (body
+    parameters), else the plan's; scales: fk's, for the S-dot terms.
     """
     c = fw.tensors(q.dtype, q.device)
     B = q.shape[-1]
+    Ad = None if scales is None else _scaled_Ad(c, scales)
     sdot = {}
     if fw.exp_joints:
-        sdot.update(zip(fw.exp_joints, _exp_S_dot_dq(c, q, v)))
+        sdot.update(zip(fw.exp_joints, _exp_S_dot_dq(c, q, v, Ad)))
     if fw.chain_joints:
-        sdot.update(zip(fw.chain_joints, _chain_S_dot_dq(c, q, v)))
+        sdot.update(zip(fw.chain_joints, _chain_S_dot_dq(c, q, v, Ad)))
     V: List = [None] * fw.nb
     A: List = [None] * fw.nb
     for bi, jp in enumerate(fw.joints):
@@ -535,7 +602,7 @@ def bias_forces(fw: FlatWorld, q, v, rels, S_list):
     tau = q.new_zeros(fw.nv, B)
     for bi in reversed(range(fw.nb)):
         jp = fw.joints[bi]
-        Gb = c.G[bi]
+        Gb = c.G[bi] if G_list is None else G_list[bi]
         Fi = bl.mv(Gb, A[bi]) - bl.dad_apply(V[bi], bl.mv(Gb, V[bi]))
         if F[bi] is not None:
             Fi = Fi + F[bi]
@@ -550,18 +617,34 @@ def bias_forces(fw: FlatWorld, q, v, rels, S_list):
     return tau
 
 
-def mass_matrix_blocks(fw: FlatWorld, R_wb, p_wb, W):
+def mass_matrix_blocks(fw: FlatWorld, R_wb, p_wb, W, G_list=None):
     """Per-skeleton diagonal blocks of the CRBA mass matrix, aligned with
     fw.world.dof_slices() ((nd, nd, B) each; (0, 0, B) for a static one).
 
     M[a, d] = W_a^T Gc_body(d) W_d when dof a moves body(d), mirrored
-    below the diagonal; Gc is the world-frame composite inertia. The
-    reference's per-block loop computes the same entries.
+    below the diagonal; Gc is the composite inertia in world axes. The
+    reference's per-block loop computes the same entries. G_list:
+    optional per-body (6, 6, B) spatial inertias (body parameters).
+
+    The spatial quantities of a floating tree (a free or euler_free
+    root joint) are taken about its root body's origin instead of the
+    world origin (M does not depend on the point): about the world
+    origin, a floating body far from it and small (a 20-box stack's top
+    box, 0.85 mm wide at 0.8 m) has its rotational entries (~1e-7) formed
+    as differences of ~|p|^2 m terms, which float32 rounding leaves
+    indefinite. Other trees keep the world origin (in a world without a
+    floating tree the shift is left out).
     """
     c = fw.tensors(W.dtype, W.device)
     B = W.shape[-1]
     R = torch.stack(R_wb)  # (nb, 3, 3, B)
     p = torch.stack(p_wb)  # (nb, 3, B)
+    if c.floating is not None:
+        p_root = p[c.root_of_body] * c.floating
+        p = p - p_root
+        # W's linear rows about that point: v_c = v_o - c x w.
+        c_dof = p_root[c.body_of_dof].permute(1, 0, 2)  # (3, nv, B)
+        W = torch.cat([W[:3], W[3:] - torch.cross(c_dof, W[:3], dim=0)])
     Rt = R.transpose(1, 2)
     # X = Ad(T_wb^-1) = [[R^T, 0], [-R^T [p]x, R^T]].
     px = bl.skew(p.transpose(0, 1)).permute(2, 0, 1, 3)  # (nb, 3, 3, B)
@@ -571,7 +654,8 @@ def mass_matrix_blocks(fw: FlatWorld, R_wb, p_wb, W):
          torch.cat([mRtP, Rt], dim=2)],
         dim=1,
     )  # (nb, 6, 6, B)
-    GX = torch.einsum("nijb,njkb->nikb", c.G, X)
+    G = c.G if G_list is None else torch.stack(G_list)
+    GX = torch.einsum("nijb,njkb->nikb", G, X)
     Gc = torch.einsum("njib,njkb->nikb", X, GX)
     Gcomp = torch.einsum("pc,cijb->pijb", c.desc, Gc)
     Y = torch.einsum("dijb,jdb->idb", Gcomp[c.body_of_dof], W)  # (6, nv, B)

@@ -12,7 +12,9 @@ jax.checkpoint(step, policy=LCP_REMAT_POLICY).
 
 The rows are the JAX package's: contacts, joint limits, servo, mimic and
 locked motors, and the user's ball and weld constraints with their
-error feedback. The LCP is solved as the JAX package's step solves it:
+error feedback. Per-world body parameters (masses, COMs, inertias,
+scales) enter the smooth dynamics as the JAX package's `body_params` do,
+with their gradients. The LCP is solved as the JAX package's step solves it:
 one boxed LCP per static constraint island when the world splits into
 several (SolverConfig.contact_islands), else, under
 SolverConfig.contact_cap, one on the `cap` deepest contact slots of each
@@ -235,7 +237,14 @@ class BatchedEngine:
              for c in range(C)]
         ) if C else np.zeros((0, self.world.num_dofs))
         rows = self.assembler.limit_rows
+        specs = self.fw.body_specs
         return SimpleNamespace(
+            # The bodies' nominal mass (NB, 1), COM (NB, 3, 1) and inertia
+            # (NB, 3, 3, 1), for body parameters.
+            body_mass=t([b.mass for b in specs])[:, None],
+            body_com=t(np.stack([b.com for b in specs]) if specs else np.zeros((0, 3)))[..., None],
+            body_inertia=t(np.stack([b.inertia for b in specs]) if specs
+                           else np.zeros((0, 3, 3)))[..., None],
             **{k: t(v)[:, None] for k, v in per_dof.items()},
             dmask=t(dmask)[:, None, :, None],  # (C, 1, nv, 1)
             restitution=t(self.bcollider.restitution)[:, None],
@@ -473,17 +482,70 @@ class BatchedEngine:
         vf = valid.to(q.dtype)
         return J * vf[:, None, :], b * vf, mu * vf, valid
 
-    def lcp_problem(self, q, v, control) -> LcpProblem:
+    def _prepare_body_params(self, body_params, dtype, B):
+        """A body-parameter dict in the engine's layout, as the JAX
+        package's BatchedEngine._prepare_body_params.
+
+        body_params: {"masses" (NB,)/(NB, B), "coms" (NB, 3)/(NB, 3, B),
+        "inertias" (NB, 3, 3)/(NB, 3, 3, B), "scales" (NB, 3)/(NB, 3, B)},
+        any subset, shared by every world or per world. Masses without
+        inertias scale each body's inertia by m / m0; scales multiply the
+        COM by s and the inertia by s s^T. Returns (scales (NB, 3, B or 1)
+        or None, G_list: per-body (6, 6, B) spatial inertias
+        [[I + m [c]x [c]x^T, m [c]x], [m [c]x^T, m I3]]), or (None, None)
+        without body_params.
+        """
+        if body_params is None:
+            return None, None
+        dev = self.device
+
+        def norm(key, base_ndim):
+            x = body_params.get(key)
+            if x is None:
+                return None
+            x = torch.as_tensor(x, dtype=dtype, device=dev)
+            return x[..., None] if x.dim() == base_ndim else x
+
+        masses, coms = norm("masses", 1), norm("coms", 2)
+        inertias, scales = norm("inertias", 3), norm("scales", 2)
+        k = self._c
+        m0 = k.body_mass.to(dtype)  # (NB, 1)
+        m = m0 if masses is None else masses
+        c = k.body_com.to(dtype) if coms is None else coms
+        if inertias is not None:
+            I = inertias
+        elif masses is not None:
+            # Inertia scales linearly in mass for fixed geometry.
+            I = k.body_inertia.to(dtype) * (m / m0)[:, None, None, :]
+        else:
+            I = k.body_inertia.to(dtype)
+        if scales is not None:
+            c = c * scales
+            I = I * (scales[:, :, None, :] * scales[:, None, :, :])
+        nb = m0.shape[0]
+        m = m.expand(nb, B)
+        c = c.expand(nb, 3, B)
+        I = I.expand(nb, 3, 3, B)
+        cx = bl.skew(c.transpose(0, 1)).permute(2, 0, 1, 3)  # (NB, 3, 3, B)
+        mb = m[:, None, None, :]
+        eye = torch.eye(3, dtype=dtype, device=dev)[None, :, :, None]
+        top = torch.cat([I + mb * torch.einsum("nijb,nkjb->nikb", cx, cx), mb * cx], dim=2)
+        bot = torch.cat([mb * cx.transpose(1, 2), mb * eye.expand(nb, 3, 3, B)], dim=2)
+        return scales, list(torch.cat([top, bot], dim=1).unbind(0))
+
+    def lcp_problem(self, q, v, control, body=None) -> LcpProblem:
         """Everything of one step before the LCP solve: smooth dynamics,
         collision and the constraint rows, as F = J L^-T, b and mu (with no
-        rows: empty F, b, mu and contacts, and no collision)."""
+        rows: empty F, b, mu and contacts, and no collision). body: the
+        (scales, G_list) of _prepare_body_params, or None."""
         w = self.world
         dt = w.time_step
         B = q.shape[-1]
         c = self._c
-        R_wb, p_wb, W, S_list, rels = fk(self.fw, q)
-        bias = bias_forces(self.fw, q, v, rels, S_list)
-        Ls = bl.block_cholesky(mass_matrix_blocks(self.fw, R_wb, p_wb, W))
+        scales, G_list = (None, None) if body is None else body
+        R_wb, p_wb, W, S_list, rels = fk(self.fw, q, scales)
+        bias = bias_forces(self.fw, q, v, rels, S_list, G_list, scales)
+        Ls = bl.block_cholesky(mass_matrix_blocks(self.fw, R_wb, p_wb, W, G_list))
         sl = self.skel_slices
         passive = -c.damping * v - c.stiffness * (q - c.rest_pos)
         tau = control * c.force_mask + passive
@@ -641,15 +703,13 @@ class BatchedEngine:
         ladder_mode: Optional[str] = None,
     ) -> BatchedStepResult:
         """One batched physics step on (nv, B) q, v, control and (n, B)
-        warm-start impulses. fallback_cfm / fallback_gradients /
-        ladder_mode override the World's SolverConfig for this call."""
-        if body_params is not None:
-            raise NotImplementedError(
-                "body_params gradients come with the rest of the batched "
-                "engine (ROADMAP queue 1 item 9.5)"
-            )
+        warm-start impulses; differentiable in those and, when given, in
+        the tensors of `body_params` (see _prepare_body_params).
+        fallback_cfm / fallback_gradients / ladder_mode override the
+        World's SolverConfig for this call."""
         z_warm = self._inputs(q, v, control, z_warm)
-        prob = self.lcp_problem(q, v, control)
+        body = self._prepare_body_params(body_params, q.dtype, q.shape[-1])
+        prob = self.lcp_problem(q, v, control, body)
         opts = self._lcp_options(fallback_cfm, fallback_gradients, ladder_mode)
         z, u, _ = self._solve(prob, z_warm, opts)
         return self._finish(q, v, prob, z, u)
@@ -660,6 +720,7 @@ class BatchedEngine:
         v: torch.Tensor,
         control: torch.Tensor,
         z_warm: Optional[torch.Tensor] = None,
+        body_params: Optional[dict] = None,
         fallback_cfm: Optional[float] = None,
         fallback_gradients=None,
         ladder_mode: Optional[str] = None,
@@ -667,7 +728,9 @@ class BatchedEngine:
         """`step` with its values and gradients, keeping for the backward
         only the step's inputs and its StepSaved (a few (n, B) tensors per
         LCP, and the capped rows), as
-        jax.checkpoint(step, policy=LCP_REMAT_POLICY) does.
+        jax.checkpoint(step, policy=LCP_REMAT_POLICY) does. The tensors of
+        `body_params` are inputs of the checkpoint, so their gradients
+        reach the caller too.
 
         The step runs once without a graph; its backward recomputes the
         smooth dynamics, collision, rows and F, and replays the pinned
@@ -678,19 +741,28 @@ class BatchedEngine:
         z_warm = self._inputs(q, v, control, z_warm)
         opts = self._lcp_options(fallback_cfm, fallback_gradients, ladder_mode)
         saved = []  # the forward's StepSaved, read by the recompute
+        keys = sorted(body_params or {})
+        body = [torch.as_tensor(body_params[k], dtype=q.dtype, device=q.device)
+                for k in keys]
 
-        def replay(q, v, control, z_warm):
-            prob = self.lcp_problem(q, v, control)
+        def replay(q, v, control, z_warm, *body):
+            bp = dict(zip(keys, body)) if keys else None
+            prob = self.lcp_problem(
+                q, v, control, self._prepare_body_params(bp, q.dtype, q.shape[-1]))
             z, u, s = self._solve(prob, z_warm, opts, saved[0] if saved else None)
             if not saved:
                 saved.append(s)
             return self._finish(q, v, prob, z, u)
 
-        return BatchedStepResult(*_Recompute.apply(replay, q, v, control, z_warm))
+        return BatchedStepResult(
+            *_Recompute.apply(replay, q, v, control, z_warm, *body))
 
-    def state_step(self, state, action):
-        """RL state/action step: state (2nv, B), action (na, B)."""
+    def state_step(self, state, action, masses=None):
+        """RL state/action step: state (2nv, B), action (na, B); masses:
+        optional (NB,)/(NB, B) per-body masses (the JAX package's
+        state_step)."""
         nv = self.world.num_dofs
         q, v = state[:nv], state[nv:]
-        res = self.step(q, v, self.action_to_forces(action))
+        bp = None if masses is None else {"masses": masses}
+        res = self.step(q, v, self.action_to_forces(action), body_params=bp)
         return torch.cat([res.q, res.v])

@@ -301,11 +301,12 @@ class LcpSaved(NamedTuple):
 
 def _seed(meta: LcpMeta, F, b, mu, z_warm, cfm, z_kernel=None):
     """The iterative seed, and on the card the kernel's raw output (None
-    elsewhere): APGD (kernel K1/K1b on the card) or, for solver "pgs",
-    meta.iterations sweeps of PGS (no kernel in either package)."""
+    elsewhere): APGD (kernel K1/K1b on the card) for solver "apgd", else,
+    whatever the name, meta.iterations sweeps of PGS (no kernel in either
+    package), as the JAX package's boxed_lcp_b dispatches."""
     from nimblephysics_tpu_torch.batched import lcp_cuda
 
-    if meta.solver == "pgs":
+    if meta.solver != "apgd":
         return lcp_cuda.pgs_plain(meta, F, cfm, b, mu, z_warm), None
     if F.device.type == "cuda" and z_kernel is None:
         z_kernel = lcp_cuda.seed_kernel(meta, F, b, mu, z_warm, cfm)
@@ -426,8 +427,6 @@ def boxed_lcp_b(meta: LcpMeta, F, b, mu, z_warm, cfm=0.0, fallback_cfm=1e-4,
         raise ValueError(f"unknown ladder_mode {ladder_mode!r}")
     if fallback_gradients not in (False, True, "reclassify"):
         raise ValueError(f"unknown fallback_gradients {fallback_gradients!r}")
-    if meta.solver not in ("apgd", "pgs"):
-        raise ValueError(f"unknown LCP solver {meta.solver!r}")
     z_seed = None
     if fallback_gradients:
         z_seed, z_kernel = _seed(

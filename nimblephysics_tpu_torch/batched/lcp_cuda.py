@@ -17,8 +17,10 @@ mirrors apgd_seed_tpu there:
 The kernel is compiled with nvcc at first use into csrc/build/ (a shared
 library with a plain C interface, loaded with ctypes). Nothing here is
 built or imported from a GPU toolchain when the module is imported.
-`seed_plan` is its launch plan (padded rank, worlds per block, shared
-memory) against the card's limits, which the library reports.
+`seed_plan` is its launch plan against the card's limits, which the
+library reports: the narrow tier (a warp per world, rank <= 32, n <= 256)
+where it fits, else the wide tier (a block per world, rank <= 128,
+n <= 1024, F in a global workspace).
 """
 
 from __future__ import annotations
@@ -66,20 +68,33 @@ INSTANCES = tuple((w, k) for k in ROWS_PER_LANE for w in RANK_WIDTHS
                   if k == 8 or w <= 16)
 LANES_PER_WORLD = 32  # a warp per world in the APGD phases
 WORLDS_PER_BLOCK = 8  # eight consecutive worlds: one 32-byte sector a row
+# The wide tier (WIDE_INSTANCES in csrc/apgd_seed.cu): a block of
+# WIDE_THREADS threads per world, the rank padded to the first of
+# WIDE_WIDTHS that holds it, up to WIDE_MAX_ROWS rows. Its shared memory
+# holds 10 vectors of n words and WIDE_EXTRA words; F [n][R] lies in a
+# global workspace of n R floats a world.
+WIDE_WIDTHS = (32, 64, 128)
+WIDE_MAX_ROWS = 1024
+WIDE_THREADS = 256
+WIDE_VECTORS = 10
+WIDE_EXTRA = WIDE_THREADS + 32
 
 
 @dataclasses.dataclass(frozen=True)
 class SeedPlan:
     """How the kernel runs an LCP of n rows and rank r on a card.
 
-    rank_width: the template width r is padded to, and rows_per_lane the
-    rows a lane owns (0: no instantiation holds the LCP);
-    worlds_per_block: worlds (warps) per block, halved from
-    WORLDS_PER_BLOCK until the block fits; world_stride: floats of one
-    world's shared-memory region (odd, so that the polish's lanes, one per
-    world, fall on distinct banks); smem_bytes: shared memory per block;
-    fits: whether the card (smem_limit bytes a block) takes it, and if
-    not, why.
+    tier: "narrow" (a warp per world, F in shared memory, several worlds a
+    block) or "wide" (a block per world). rank_width: the template width
+    r is padded to (0: no tier holds the LCP); rows_per_lane: the rows a
+    lane owns in the narrow tier (0 in the wide one); lanes_per_world:
+    threads per world; worlds_per_block: worlds a block holds (narrow:
+    halved from WORLDS_PER_BLOCK until the block fits; wide: 1);
+    world_stride: floats of one world's shared-memory region (narrow: odd,
+    so that the polish's lanes, one per world, fall on distinct banks) or
+    of its F in the global workspace (wide); smem_bytes: shared memory per
+    block; fits: whether the card (smem_limit bytes a block) takes it, and
+    if not, why.
     """
 
     n: int
@@ -93,24 +108,25 @@ class SeedPlan:
     smem_limit: int
     fits: bool
     why: str = ""
+    tier: str = "narrow"
+
+    @property
+    def workspace_floats(self) -> int:
+        """Floats of global workspace a world needs (the wide tier's F)."""
+        return self.world_stride if self.tier == "wide" else 0
 
 
-@functools.lru_cache(maxsize=64)
-def seed_plan(n: int, r: int, smem_limit: int) -> SeedPlan:
-    """The launch plan of apgd_cuda for F (n, r, B) on a card that lets a
-    block opt into smem_limit bytes of shared memory.
-
-    A world's region holds F as [n][R + 1] (R the padded rank), b, mu, z,
-    the polish's 1 / A_ii (n each) and u (R); the block adds the per-row lo, hi,
-    is_friction and findex (4 n words).
-    """
+def _narrow_plan(n: int, r: int, smem_limit: int) -> SeedPlan:
+    """A world's region holds F as [n][R + 1] (R the padded rank), b, mu,
+    z, the polish's 1 / A_ii (n each) and u (R); the block adds the per-row
+    lo, hi, is_friction and findex (4 n words)."""
     width = next((w for w in RANK_WIDTHS if w >= r), 0)
     rows = next((k for k in ROWS_PER_LANE
                  if LANES_PER_WORLD * k >= n and (width, k) in INSTANCES), 0)
     if not (width and rows):
         return SeedPlan(n, r, width, rows, LANES_PER_WORLD, 0, 0, 0, smem_limit,
-                        False, f"n={n}, r={r} is beyond the kernel's "
-                        f"instantiations (rank <= {RANK_WIDTHS[-1]}, rows <= "
+                        False, f"n={n}, r={r} is beyond the narrow tier (rank <= "
+                        f"{RANK_WIDTHS[-1]}, rows <= "
                         f"{LANES_PER_WORLD * ROWS_PER_LANE[-1]})")
     stride = (n * (width + 5) + width) | 1
     worlds = WORLDS_PER_BLOCK
@@ -125,6 +141,32 @@ def seed_plan(n: int, r: int, smem_limit: int) -> SeedPlan:
         f"for one world, above the card's {smem_limit} per block")
     return SeedPlan(n, r, width, rows, LANES_PER_WORLD, worlds, stride, smem,
                     smem_limit, fits, why)
+
+
+def _wide_plan(n: int, r: int, smem_limit: int) -> SeedPlan:
+    width = next((w for w in WIDE_WIDTHS if w >= r), 0)
+    if not width or n > WIDE_MAX_ROWS:
+        return SeedPlan(n, r, width, 0, WIDE_THREADS, 0, 0, 0, smem_limit, False,
+                        f"n={n}, r={r} is beyond the kernel's capacity (rank <= "
+                        f"{WIDE_WIDTHS[-1]}, rows <= {WIDE_MAX_ROWS})", "wide")
+    smem = 4 * (WIDE_VECTORS * n + WIDE_EXTRA)
+    fits = smem <= smem_limit
+    why = "" if fits else (
+        f"n={n}, r={r} (width {width}) needs {smem} bytes of shared memory "
+        f"for one world, above the card's {smem_limit} per block")
+    return SeedPlan(n, r, width, 0, WIDE_THREADS, 1, n * width, smem, smem_limit,
+                    fits, why, "wide")
+
+
+@functools.lru_cache(maxsize=64)
+def seed_plan(n: int, r: int, smem_limit: int) -> SeedPlan:
+    """The launch plan of apgd_cuda for F (n, r, B) on a card that lets a
+    block opt into smem_limit bytes of shared memory: the narrow tier
+    where one of its instantiations holds the LCP and fits, else the wide
+    tier (F in a global workspace), else a refusal that says why.
+    """
+    plan = _narrow_plan(n, r, smem_limit)
+    return plan if plan.fits else _wide_plan(n, r, smem_limit)
 
 
 def apgd_plain(meta: LcpMeta, F, cfm, b, mu, z0):
@@ -268,6 +310,11 @@ def _library() -> ctypes.CDLL:
     lib.apgd_seed_smem_limit.restype = i
     lib.apgd_seed_occupancy.argtypes = [i, i, i, i, z]
     lib.apgd_seed_occupancy.restype = i
+    lib.apgd_wide_f32.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                  ctypes.c_float, i, p, z, p]
+    lib.apgd_wide_f32.restype = i
+    lib.apgd_wide_occupancy.argtypes = [i, i, z]
+    lib.apgd_wide_occupancy.restype = i
     return lib
 
 
@@ -281,9 +328,13 @@ def resident_warps(plan: SeedPlan, polish: bool) -> int:
     """Warps of the kernel resident on one SM at this plan
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the block's
     warps)."""
-    blocks = _library().apgd_seed_occupancy(
-        plan.rank_width, plan.rows_per_lane, int(polish),
-        plan.worlds_per_block, plan.smem_bytes)
+    if plan.tier == "wide":
+        blocks = _library().apgd_wide_occupancy(
+            plan.rank_width, int(polish), plan.smem_bytes)
+    else:
+        blocks = _library().apgd_seed_occupancy(
+            plan.rank_width, plan.rows_per_lane, int(polish),
+            plan.worlds_per_block, plan.smem_bytes)
     if blocks < 0:
         raise RuntimeError("apgd_seed_occupancy failed")
     return blocks * plan.worlds_per_block * plan.lanes_per_world // 32
@@ -338,13 +389,29 @@ def apgd_cuda(meta: LcpMeta, F, b, mu, z0, cfm: float = 0.0,
         raise NotImplementedError(f"apgd_cuda: {plan.why}")
     isf, fidx, lo, hi = _static_rows(meta, F.device)
     z = torch.empty_like(b)
+    stream = torch.cuda.current_stream(F.device).cuda_stream
+    if plan.tier == "wide":
+        # The workspace is freed to the caching allocator on this stream,
+        # which reuses it only for work queued after the kernel.
+        work = torch.empty(B * plan.workspace_floats, dtype=torch.float32,
+                           device=F.device)
+        err = _library().apgd_wide_f32(
+            F.data_ptr(), b.data_ptr(), mu.data_ptr(), z0.data_ptr(), z.data_ptr(),
+            isf.data_ptr(), fidx.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            n, r, B, int(meta.iterations), int(pgs_sweeps), float(cfm),
+            plan.rank_width, work.data_ptr(),
+            plan.smem_bytes, stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"apgd_seed wide kernel launch failed: CUDA error {err}")
+        apgd_seed.launches += 1
+        return z
     err = _library().apgd_seed_f32(
         F.data_ptr(), b.data_ptr(), mu.data_ptr(), z0.data_ptr(), z.data_ptr(),
         isf.data_ptr(), fidx.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         n, r, B, int(meta.iterations), int(pgs_sweeps), float(cfm),
         plan.rank_width, plan.rows_per_lane, plan.worlds_per_block,
-        plan.world_stride, plan.smem_bytes,
-        torch.cuda.current_stream(F.device).cuda_stream,
+        plan.world_stride, plan.smem_bytes, stream,
     )
     if err != 0:
         raise RuntimeError(f"apgd_seed kernel launch failed: CUDA error {err}")

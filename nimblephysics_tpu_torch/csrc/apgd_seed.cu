@@ -446,6 +446,314 @@ __global__ void __launch_bounds__(kLanes * kMaxWorldsPerBlock)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The wide tier: LCPs past the instantiations above (rank > 32 or n > 256),
+// up to n = 1024 rows and rank 128, such as a 10-box stack's capped LCP
+// (n = 288, r = 60) or a 20-box stack's (n = 576, r = 120). A world's F
+// no longer fits a warp's registers, and the 20-box one (276 KB) not even
+// a block's shared memory, so a world is a block of kWideThreads threads:
+//   * the block stages its world's F from the public (n, r, B) layout as
+//     [row][R] (R = r padded with zero columns to 32, 64 or 128) into its
+//     own region of a global workspace that the caller allocates; every
+//     later read of F is coalesced and hits L2 while the SM works on that
+//     world;
+//   * u = F^T y: thread t sums column t mod R over the rows t / R,
+//     t / R + 256 / R, ..., and the 256 / R partial columns are added
+//     through shared memory;
+//   * F u: a warp takes eight rows at a time, each lane the columns
+//     lane + 32 k, and one reduce-scatter (halve<8, 16>, 9 shuffles for
+//     eight rows) leaves row m's sum in lanes 4 m .. 4 m + 3, lane 4 m
+//     updates the row; the friction rows are clipped after every row's
+//     normal is projected (one barrier);
+//   * the polish is sequential across rows, so warp 0 runs it: u (R) is
+//     spread over the lanes, row i + 1's F and statics are fetched while
+//     row i is reduced, and each row costs one 5-level warp sum.
+// The arithmetic is the narrow tier's (the header above); only the order
+// of the sums differs.
+
+constexpr int kWideThreads = 256;
+constexpr int kWideWarps = kWideThreads / kLanes;
+// Floats of shared memory besides F: lo, hi, is_friction, findex, b, mu,
+// z, z_prev, y and the inverse diagonal (n each), the partial columns
+// (kWideThreads) and the block reductions (32).
+constexpr int kWideVectors = 10;
+constexpr int kWideExtra = kWideThreads + 32;
+
+// Block-wide sum or max of x, the same value in every thread (a fixed
+// order over the warps).
+template <bool kMax>
+__device__ __forceinline__ float block_reduce(float x, float* red) {
+  x = kMax ? warp_max(x) : warp_sum(x);
+  __syncthreads();  // red is free: every thread has read the last result
+  if ((threadIdx.x & (kLanes - 1)) == 0) red[threadIdx.x >> 5] = x;
+  __syncthreads();
+  float s = red[0];
+#pragma unroll
+  for (int k = 1; k < kWideWarps; ++k) s = kMax ? fmaxf(s, red[k]) : s + red[k];
+  return s;
+}
+
+// u = F^T y over the block: partial columns into part (kWideThreads
+// floats), then each lane of every warp gathers u[lane + 32 k].
+template <int R>
+__device__ __forceinline__ void wide_FTy(const float* Fw, const float* sy,
+                                         float* part, int n, float (&u)[R / 32]) {
+  constexpr int G = kWideThreads / R;
+  const int tid = threadIdx.x;
+  const int j = tid & (R - 1);
+  const int g = tid / R;
+  float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int i = g;
+#pragma unroll 1
+  for (; i + 3 * G < n; i += 4 * G) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) a[m] += Fw[(size_t)(i + m * G) * R + j] * sy[i + m * G];
+  }
+  for (; i < n; i += G) a[0] += Fw[(size_t)i * R + j] * sy[i];
+  part[tid] = (a[0] + a[1]) + (a[2] + a[3]);
+  __syncthreads();
+  const int lane = tid & (kLanes - 1);
+#pragma unroll
+  for (int k = 0; k < R / 32; ++k) {
+    float s = 0.0f;
+#pragma unroll
+    for (int gg = 0; gg < G; ++gg) s += part[gg * R + 32 * k + lane];
+    u[k] = s;
+  }
+}
+
+// For every row i: row(i, F_i . u) in one lane, eight rows a warp at a
+// time. With kSquares, F_i . F_i instead.
+template <int R, bool kSquares, typename Row>
+__device__ __forceinline__ void wide_rows(const float* Fw, int n,
+                                          const float (&u)[R / 32], Row row) {
+  constexpr int NJ = R / 32;
+  const int lane = threadIdx.x & (kLanes - 1);
+  const int warp = threadIdx.x >> 5;
+#pragma unroll 1
+  for (int i0 = 8 * warp; i0 < n; i0 += 8 * kWideWarps) {
+    float p[8];
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      p[m] = 0.0f;
+      if (i0 + m < n) {
+#pragma unroll
+        for (int k = 0; k < NJ; ++k) {
+          const float f = Fw[(size_t)(i0 + m) * R + 32 * k + lane];
+          p[m] += f * (kSquares ? f : u[k]);
+        }
+      }
+    }
+    halve<8, kLanes / 2>(p, lane);
+    const int i = i0 + ((lane >> 2) & 7);
+    if ((lane & 3) == 0 && i < n) row(i, p[0]);
+  }
+}
+
+// What one polish row reads besides z.
+template <int NJ>
+struct WideRow {
+  float f[NJ];
+  float b, inv, mu, lo, hi;
+  int fr, fi;
+};
+
+template <int R>
+__device__ __forceinline__ void load_wide_row(
+    WideRow<R / 32>& row, int i, int lane, const float* Fw, const float* sb,
+    const float* sinv, const float* smu, const float* slo, const float* shi,
+    const int* sisf, const int* sfidx) {
+#pragma unroll
+  for (int k = 0; k < R / 32; ++k) row.f[k] = Fw[(size_t)i * R + 32 * k + lane];
+  row.b = sb[i];
+  row.inv = sinv[i];
+  row.mu = smu[i];
+  row.lo = slo[i];
+  row.hi = shi[i];
+  row.fr = sisf[i];
+  row.fi = sfidx[i];
+}
+
+// One block per world, kWideThreads threads. Shared memory: lo, hi,
+// is_friction, findex, b, mu, z, z_prev, y, the diagonal / its inverse
+// (n each), the partial columns and the reductions (kWideExtra). World
+// w's F is work[w n R ...].
+template <int R, bool kPolish>
+__global__ void __launch_bounds__(kWideThreads)
+    apgd_wide_kernel(const float* __restrict__ F, const float* __restrict__ b,
+                     const float* __restrict__ mu,
+                     const float* __restrict__ z0, float* __restrict__ z_out,
+                     const int* __restrict__ is_friction,
+                     const int* __restrict__ findex,
+                     const float* __restrict__ lo,
+                     const float* __restrict__ hi, int n, int r, int B,
+                     int iterations, int pgs_sweeps, float cfm, float* work) {
+  constexpr int NJ = R / 32;
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & (kLanes - 1);
+  const int w = blockIdx.x;
+
+  float* const slo = smem;
+  float* const shi = slo + n;
+  int* const sisf = reinterpret_cast<int*>(shi + n);
+  int* const sfidx = sisf + n;
+  float* const sb = smem + 4 * n;
+  float* const smu = sb + n;
+  float* const sz = smu + n;
+  float* const szp = sz + n;
+  float* const sy = szp + n;
+  float* const sinv = sy + n;
+  float* const part = smem + kWideVectors * n;
+  float* const red = part + kWideThreads;
+  float* const Fw = work + (size_t)w * n * R;
+
+  for (int i = tid; i < n; i += kWideThreads) {
+    const size_t gi = (size_t)i * B + w;
+    slo[i] = lo[i];
+    shi[i] = hi[i];
+    sisf[i] = is_friction[i];
+    sfidx[i] = findex[i];
+    sb[i] = b[gi];
+    smu[i] = mu[gi];
+    sz[i] = z0[gi];
+    szp[i] = z0[gi];
+    sy[i] = 1.0f;  // the power iteration's start
+  }
+#pragma unroll 4
+  for (int idx = tid; idx < n * R; idx += kWideThreads) {
+    const int i = idx / R;
+    const int j = idx & (R - 1);
+    Fw[idx] = j < r ? F[(size_t)(i * r + j) * B + w] : 0.0f;
+  }
+  __syncthreads();
+
+  float u[NJ];
+  // A_ii (kept in sinv for the polish) and its largest value.
+  float dmax = -FLT_MAX;
+  wide_rows<R, true>(Fw, n, u, [&](int i, float d) {
+    sinv[i] = d + cfm;
+    dmax = fmaxf(dmax, d + cfm);
+  });
+  dmax = block_reduce<true>(dmax, red);
+
+  // Power iteration on A with v in sy, then the Rayleigh quotient.
+  float L = 0.0f;
+  for (int it = 0; it < 7; ++it) {
+    wide_FTy<R>(Fw, sy, part, n, u);
+    float acc = 0.0f;
+    wide_rows<R, false>(Fw, n, u, [&](int i, float fu) {
+      const float av = fu + cfm * sy[i];
+      if (it < 6) {
+        acc += av * av;
+        sy[i] = av;
+      } else {
+        acc += sy[i] * av;
+      }
+    });
+    acc = block_reduce<false>(acc, red);
+    if (it < 6) {
+      const float s = rsqrtf(fmaxf(acc, 1e-24f));
+      for (int i = tid; i < n; i += kWideThreads) sy[i] *= s;
+      __syncthreads();
+    } else {
+      L = fmaxf(acc * 1.05f, dmax) + 1e-9f;
+    }
+  }
+  const float step = 1.0f / L;
+
+  // Nesterov projected-gradient steps on z (sz), z_prev in szp.
+  for (int it = 0; it < iterations; ++it) {
+    const float beta = ((float)it - 1.0f) / ((float)it + 2.0f);
+    for (int i = tid; i < n; i += kWideThreads) sy[i] = sz[i] + beta * (sz[i] - szp[i]);
+    __syncthreads();
+    wide_FTy<R>(Fw, sy, part, n, u);
+    wide_rows<R, false>(Fw, n, u, [&](int i, float fu) {
+      const float x = sy[i] - step * (fu + cfm * sy[i] - sb[i]);
+      szp[i] = sz[i];
+      sz[i] = sisf[i] ? x : fminf(fmaxf(x, slo[i]), shi[i]);
+    });
+    __syncthreads();
+    for (int i = tid; i < n; i += kWideThreads) {
+      if (sisf[i]) {
+        const float bound = smu[i] * fmaxf(sz[sfidx[i]], 0.0f);
+        sz[i] = fminf(fmaxf(sz[i], -bound), bound);
+      }
+    }
+    __syncthreads();
+  }
+
+  if constexpr (kPolish) {
+    for (int i = tid; i < n; i += kWideThreads) {
+      const float d = sinv[i];
+      sinv[i] = d > 1e-12f ? 1.0f / fmaxf(d, 1e-12f) : 0.0f;
+    }
+    wide_FTy<R>(Fw, sz, part, n, u);  // its first barrier orders sinv too
+    if (tid < kLanes) {
+      WideRow<NJ> ra, rb;
+      load_wide_row<R>(ra, 0, lane, Fw, sb, sinv, smu, slo, shi, sisf, sfidx);
+      const int total = pgs_sweeps * n;
+      int i = 0;
+      for (int t = 0; t < total; ++t) {
+        const int i1 = i + 1 == n ? 0 : i + 1;
+        if (t + 1 < total)
+          load_wide_row<R>(rb, i1, lane, Fw, sb, sinv, smu, slo, shi, sisf, sfidx);
+        float p = 0.0f;
+#pragma unroll
+        for (int k = 0; k < NJ; ++k) p += ra.f[k] * u[k];
+        p = warp_sum(p);
+        const float zi = sz[i];
+        const float bound = ra.mu * sz[ra.fi];
+        const float rlo = ra.fr ? -bound : ra.lo;
+        const float rhi = ra.fr ? bound : ra.hi;
+        const float x = fminf(fmaxf(zi + (ra.b - (p + cfm * zi)) * ra.inv, rlo), rhi);
+        const float dz = x - zi;
+#pragma unroll
+        for (int k = 0; k < NJ; ++k) u[k] += ra.f[k] * dz;
+        __syncwarp();
+        if (lane == 0) sz[i] = x;
+        __syncwarp();
+        ra = rb;
+        i = i1;
+      }
+    }
+  }
+
+  __syncthreads();
+  for (int i = tid; i < n; i += kWideThreads) z_out[(size_t)i * B + w] = sz[i];
+}
+
+template <int R, bool kPolish>
+cudaError_t launch_wide(const float* F, const float* b, const float* mu,
+                        const float* z0, float* z, const int* isf,
+                        const int* fidx, const float* lo, const float* hi,
+                        int n, int r, int B, int iterations, int pgs_sweeps,
+                        float cfm, float* work, size_t smem,
+                        cudaStream_t stream) {
+  auto kernel = apgd_wide_kernel<R, kPolish>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B, kWideThreads, smem, stream>>>(F, b, mu, z0, z, isf, fidx, lo, hi,
+                                            n, r, B, iterations, pgs_sweeps,
+                                            cfm, work);
+  return cudaGetLastError();
+}
+
+template <int R, bool kPolish>
+int occupancy_wide(size_t smem) {
+  auto kernel = apgd_wide_kernel<R, kPolish>;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess)
+    return -1;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                    kWideThreads, smem) !=
+      cudaSuccess)
+    return -1;
+  return blocks;
+}
+
 template <int R, int ROWS, bool kPolish>
 cudaError_t launch(const float* F, const float* b, const float* mu,
                    const float* z0, float* z, const int* isf, const int* fidx,
@@ -484,6 +792,8 @@ int occupancy(int W, size_t smem) {
 // every width.
 #define NT_INSTANCES(X) \
   X(8, 2) X(12, 2) X(16, 2) X(8, 8) X(12, 8) X(16, 8) X(24, 8) X(32, 8)
+// The wide tier's rank widths (up to 1024 rows).
+#define WIDE_INSTANCES(X) X(32) X(64) X(128)
 
 extern "C" {
 
@@ -544,6 +854,50 @@ int apgd_seed_f32(const float* F, const float* b, const float* mu,
                                               smem, s));
   NT_INSTANCES(NT_CASE)
 #undef NT_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// Resident blocks (worlds) per SM of the wide tier at rank width
+// `rank_width` with `smem` bytes of shared memory; -1 on an unknown width or
+// a CUDA error.
+int apgd_wide_occupancy(int rank_width, int polish, size_t smem) {
+#define WIDE_CASE(R)                                               \
+  if (rank_width == R)                                             \
+    return polish ? occupancy_wide<R, true>(smem)                  \
+                  : occupancy_wide<R, false>(smem);
+  WIDE_INSTANCES(WIDE_CASE)
+#undef WIDE_CASE
+  return -1;
+}
+
+// The wide tier, one block of 256 threads per world: F (n, r, B),
+// b/mu/z0/z (n, B) as apgd_seed_f32; n <= 1024, r <= rank_width (32, 64 or
+// 128). F is staged into work, B n rank_width floats on the device;
+// smem >= 4 (10 n + 288) bytes. Returns cudaGetLastError() after the
+// launch (0 = launched).
+int apgd_wide_f32(const float* F, const float* b, const float* mu,
+                  const float* z0, float* z, const int* is_friction,
+                  const int* findex, const float* lo, const float* hi, int n,
+                  int r, int B, int iterations, int pgs_sweeps, float cfm,
+                  int rank_width, float* work, size_t smem, void* stream) {
+  const size_t words = (size_t)kWideVectors * n + kWideExtra;
+  if (!work || n <= 0 || n > 1024 || B <= 0 || r < 1 || r > rank_width ||
+      iterations < 0 || pgs_sweeps < 0 || smem < sizeof(float) * words)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define WIDE_CASE(R)                                                          \
+  if (rank_width == R)                                                        \
+    return (int)(pgs_sweeps > 0                                               \
+                     ? launch_wide<R, true>(F, b, mu, z0, z, is_friction,     \
+                                            findex, lo, hi, n, r, B,          \
+                                            iterations, pgs_sweeps, cfm,      \
+                                            work, smem, s)                    \
+                     : launch_wide<R, false>(F, b, mu, z0, z, is_friction,    \
+                                             findex, lo, hi, n, r, B,         \
+                                             iterations, 0, cfm, work, smem,  \
+                                             s));
+  WIDE_INSTANCES(WIDE_CASE)
+#undef WIDE_CASE
   return (int)cudaErrorInvalidValue;
 }
 

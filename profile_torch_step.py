@@ -2,8 +2,8 @@
 """Where a step of nimblephysics_tpu_torch's main path spends its time on
 one NVIDIA GPU.
 
-    python3 profile_torch_step.py [--world half_cheetah|box3|jump_worm|catapult]
-                                  [--trace PATH]
+    python3 profile_torch_step.py [--world half_cheetah|box3|box10|box20|
+                                           jump_worm|catapult] [--trace PATH]
 
 Builds the main path of chip_smoke.py with its own functions (4096
 worlds, float32) and traces it with torch.profiler. For the half-cheetah
@@ -15,7 +15,9 @@ worlds, float32) and traces it with torch.profiler. For the half-cheetah
     chip_smoke.HIDDEN, the default SolverConfig) after an untraced one.
 For --world box3, the 3-box stack's forward rollout (chip_smoke's
 box_start, the default SolverConfig), settled with chip_smoke.STEPS
-untraced steps, TRACED_STEPS traced. For --world jump_worm or catapult,
+untraced steps, TRACED_STEPS traced; box10 and box20 the same for the
+10- and 20-box legs at chip_smoke.BOX_WIDE_LEGS's contact caps and worlds
+(2048 and 1024). For --world jump_worm or catapult,
 the reference suite's world under the default SolverConfig driven by its
 policy (chip_smoke's make_ref_engine, ref_start and policy_rollout),
 after chip_smoke.STEPS untraced steps.
@@ -56,9 +58,9 @@ def _union_us(intervals):
     return total
 
 
-def profile(label, fn, steps, trace=None):
-    """Trace fn() (`steps` env-steps per world), print and return the
-    per-step summary."""
+def profile(label, fn, steps, trace=None, batch=None):
+    """Trace fn() (`steps` env-steps per world of `batch`, chip_smoke.BATCH
+    unless given), print and return the per-step summary."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -82,7 +84,7 @@ def profile(label, fn, steps, trace=None):
     summary = {
         "cell": label,
         "gpu": torch.cuda.get_device_name(0),
-        "batch": chip_smoke.BATCH,
+        "batch": batch or chip_smoke.BATCH,
         "steps_traced": n,
         "host_ms_per_step": wall_us / n / 1e3,
         "kernel_launches_per_step": launches / n,
@@ -108,7 +110,8 @@ def profile(label, fn, steps, trace=None):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--world", choices=("half_cheetah", "box3") + chip_smoke.REF_WORLDS,
+    ap.add_argument("--world", choices=("half_cheetah", "box3", "box10", "box20")
+                    + chip_smoke.REF_WORLDS,
                     default="half_cheetah")
     ap.add_argument("--trace", help="write Chrome traces to this path")
     args = ap.parse_args()
@@ -123,14 +126,19 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     summaries = []
-    if args.world == "box3":
-        _, q0, eng = chip_smoke.make_box_engine(dev, 3)
-        carry, u = chip_smoke.box_start(eng, q0, np.random.RandomState(chip_smoke.SEED), dev)
+    if args.world.startswith("box"):
+        boxes = int(args.world[3:])
+        cap, worlds = next(((c, w) for b, c, w in chip_smoke.BOX_WIDE_LEGS if b == boxes),
+                           (None, None))
+        _, q0, eng = chip_smoke.make_box_engine(dev, boxes, cap)
+        carry, u = chip_smoke.box_start(eng, q0, np.random.RandomState(chip_smoke.SEED),
+                                        dev, worlds)
         carry = chip_smoke.rollout(eng, carry, u, chip_smoke.STEPS)
         torch.cuda.synchronize()
         summaries.append(profile(
-            "box3_forward_default", lambda: chip_smoke.rollout(eng, carry, u, TRACED_STEPS),
-            TRACED_STEPS, args.trace))
+            f"{args.world}_forward_default",
+            lambda: chip_smoke.rollout(eng, carry, u, TRACED_STEPS),
+            TRACED_STEPS, args.trace, worlds))
         print(json.dumps(summaries))
         return 0
     if args.world in chip_smoke.REF_WORLDS:

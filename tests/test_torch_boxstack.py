@@ -251,6 +251,37 @@ def test_box_plane_b_matches_jax():
     assert (n(got[2]) > 0).any() and (n(got[2]) < 0).any()
 
 
+# -- the mass matrix of a small body far from the origin, float32 ----------------
+
+
+def test_mass_matrix_of_the_twenty_box_top_box_in_float32():
+    """The 20-box stack's top box (0.85 mm wide, 0.8 m up: rotational
+    inertia 1.2e-7) in 128 worlds of boxstack_bench.py's start: its mass
+    matrix block in float32 within 1e-3 of float64 (relative to its
+    largest rotational entry) and every Cholesky factor finite. About the
+    world origin, float32 left that block indefinite in some worlds (NaN
+    impulses in the 20-box leg); the port takes a floating tree's M about
+    its root."""
+    from nimblephysics_tpu_torch.batched import articulated as ta
+    from nimblephysics_tpu_torch.batched import linalg as tbl
+
+    _, tw, q0 = box_stack_pair(20, contact_cap=192)
+    q = np.tile(q0[:, None], (1, 128))
+    q[len(q0) - 4] += np.random.RandomState(9).uniform(-0.2, 0.2, 128)
+    blocks = {}
+    for dtype in (torch.float32, torch.float64):
+        fw = BatchedEngine(tw, device="cpu", dtype=dtype).fw
+        R, p, W, _, _ = ta.fk(fw, torch.as_tensor(q, dtype=dtype))
+        Ms = ta.mass_matrix_blocks(fw, R, p, W)
+        assert all(bool(torch.isfinite(L).all()) for L in tbl.block_cholesky(Ms))
+        blocks[dtype] = n([M for M in Ms if M.shape[0]][-1]).astype(np.float64)
+    want = blocks[torch.float64]
+    rot = np.abs(want[:3, :3]).max()
+    assert 1e-7 < rot < 2e-7
+    np.testing.assert_allclose(blocks[torch.float32][:3, :3], want[:3, :3], rtol=0, atol=1e-3 * rot)
+    np.testing.assert_allclose(blocks[torch.float32], want, rtol=0, atol=1e-6)
+
+
 # -- K1b's plain version on the box stack's LCP ---------------------------------
 
 PAD_TO = 97  # above 96 rows the JAX _pgs rolls its row loop
@@ -282,6 +313,34 @@ def test_k1b_plain_on_box_stack_lcp_matches_jax_seed():
         polish, F, 0.0, b, mu, jlcp._apgd(pm, F, 0.0, b, mu, z)))(*map(jnp.asarray, padded)))
     assert not want[jm.n:].any()
     np.testing.assert_allclose(got, want[: jm.n], atol=1e-10, rtol=0)
+    assert np.abs(got).max() > 1e-3
+
+
+def test_k1b_plain_on_ten_box_capped_lcp_matches_jax_seed():
+    """The same on the 10-box leg's capped LCP (contact_cap 96: n = 288,
+    r = 60, past the narrow tier, where the card runs the wide tier), from
+    a step of boxstack_bench.py's start with its top box's yaw jittered;
+    the JAX meta is its engine's meta_cap, and _pgs rolls its row loop."""
+    jw, tw, q0 = box_stack_pair(10, contact_cap=96)
+    eng = BatchedEngine(tw, **F64)
+    meta = eng.meta_cap
+    assert (meta.n, meta.iterations, meta.seed_pgs_sweeps) == (288, 32, 16)
+    nv = len(q0)
+    q = np.tile(q0[:, None], (1, B))
+    q[nv - 4] += np.random.RandomState(13).uniform(-0.2, 0.2, B)
+    zero = t64(np.zeros((nv, B)))
+    first = eng.step(t64(q), zero, zero)
+    p = eng.lcp_problem(first.q, first.v, zero)
+    (_, F, b, mu, zw), = eng.lcp_blocks(p, first.impulses)[0]
+    assert F.shape == (288, 60, B)
+    arrays = [n(x) for x in (F, b, mu, zw)]
+    got = n(lcp_cuda.seed_plain(meta, t64(arrays[0]), 0.0, *[t64(x) for x in arrays[1:]]))
+    jm = JaxEngine(jw).meta_cap
+    np.testing.assert_array_equal(jm.findex, meta.findex)
+    polish = dataclasses.replace(jm, iterations=jm.seed_pgs_sweeps)
+    want = n(jax.jit(lambda F, b, mu, z: jlcp._pgs(
+        polish, F, 0.0, b, mu, jlcp._apgd(jm, F, 0.0, b, mu, z)))(*map(jnp.asarray, arrays)))
+    np.testing.assert_allclose(got, want, atol=1e-10, rtol=0)
     assert np.abs(got).max() > 1e-3
 
 

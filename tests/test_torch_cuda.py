@@ -3,7 +3,9 @@ and without its Gauss-Seidel polish (K1 and K1b), against its plain
 PyTorch version in float32 at the main path's shape, at the box stack's
 (n = 144, r = 18) and on the box-stack engine's own LCPs (2 and 3 boxes,
 5 boxes under contact_cap 48, one island of the islands scene), its
-refusal beyond its launch plan (a 10-box stack's capped LCP included),
+refusal beyond its launch plan (the 10-box stack's uncapped LCP
+included), its wide tier on the 10- and 20-box legs' capped LCPs and a
+10-box step,
 the islands' one launch per island and step, the training step's
 kernel launches and gradients, K1 and K1b on the box-bounded LCPs of the
 motor scenes (servo, mimic, locked, ball, weld; chip_smoke.motor_scene),
@@ -179,10 +181,11 @@ def test_box_stack_lcp_matches_plain(sweeps):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,r", [(2000, 32), (60, 33)])
+@pytest.mark.parametrize("n,r", [(2000, 32), (60, 129)])
 def test_wrapper_raises_above_capacity(n, r):
-    """Above the launch plan's capacity the wrapper raises with the
-    numbers; it never falls back to the plain seed."""
+    """Above the launch plan's capacity (the wide tier's: n <= 1024, rank
+    <= 128) the wrapper raises with the numbers; it never falls back to
+    the plain seed."""
     from nimblephysics_tpu_torch.batched import lcp_cuda
     from nimblephysics_tpu_torch.constraint.lcp import LcpMeta
 
@@ -304,15 +307,85 @@ def test_islands_launch_the_seed_once_per_island_and_step():
 
 
 @pytest.mark.cuda
-def test_ten_box_stack_is_refused_with_its_numbers():
-    """The 10-box leg's capped LCP (contact_cap 96: n = 288, r = 60) is
-    past the kernel's capacity: the step raises, nothing is launched."""
+@pytest.mark.parametrize("sweeps", [0, 16], ids=["K1", "K1b"])
+@pytest.mark.parametrize("boxes,cap", [(10, 96), (20, 192)], ids=["box10", "box20"])
+def test_wide_tier_matches_plain_on_capped_box_lcps(boxes, cap, sweeps):
+    """The 10- and 20-box legs' capped LCPs (n = 288, r = 60; n = 576,
+    r = 120) take the wide tier: kernel against plain at 256 worlds."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    dev = _cuda()
+    eng, q0 = _box_engine(dev, boxes, cap)
+    q, v, z, u = _box_state(dev, eng, q0, 256, 3)
+    (meta, F, b, mu, zw), = eng.lcp_blocks(eng.lcp_problem(q, v, u), z)[0][:1]
+    F, b, mu, zw = (x.contiguous() for x in (F, b, mu, zw))
+    assert lcp_cuda.seed_plan(*F.shape[:2], lcp_cuda.smem_limit(dev.index or 0)).tier == "wide"
+    got = lcp_cuda.apgd_cuda(meta, F, b, mu, zw, pgs_sweeps=sweeps)
+    want = lcp_cuda.apgd_plain(meta, F, 0.0, b, mu, zw)
+    if sweeps:
+        want = lcp_cuda.pgs_plain(meta, F, 0.0, b, mu, want, sweeps=sweeps)
+    scale = 1.0 + want.abs().amax(dim=0)
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= (PGS_TOL if sweeps else KERNEL_TOL) * scale).all()
+    assert float(want.abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweeps", [0, 16], ids=["K1", "K1b"])
+@pytest.mark.parametrize("n,r", [(300, 20), (63, 128), (1023, 128)],
+                         ids=["rows_300", "rank_128", "capacity"])
+def test_wide_tier_matches_plain_on_random_lcps(n, r, sweeps):
+    """Seeded random LCPs of contacts (a normal and two friction rows each)
+    past the narrow tier, up to the wide tier's capacity, 256 worlds."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+    from nimblephysics_tpu_torch.constraint.lcp import LcpMeta
+
+    dev = _cuda()
+    rows = np.arange(n)
+    isf = rows % 3 > 0
+    meta = LcpMeta(findex=np.where(isf, rows - rows % 3, -1).astype(np.int32),
+                   is_friction=isf, iterations=32, seed_pgs_sweeps=sweeps)
+    rng = np.random.RandomState(n + r)
+    B = 256
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
+
+    F, b = t(0.5 * rng.randn(n, r, B)), t(rng.randn(n, B))
+    mu, z0 = t(np.where(isf[:, None], 0.9, 0.0) * np.ones((1, B))), t(0.1 * np.abs(rng.randn(n, B)))
+    assert lcp_cuda.seed_plan(n, r, lcp_cuda.smem_limit(dev.index or 0)).tier == "wide"
+    got = lcp_cuda.apgd_cuda(meta, F, b, mu, z0, pgs_sweeps=sweeps)
+    want = lcp_cuda.seed_plain(meta, F, 0.0, b, mu, z0)
+    scale = 1.0 + want.abs().amax(dim=0)
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= (PGS_TOL if sweeps else KERNEL_TOL) * scale).all()
+
+
+@pytest.mark.cuda
+def test_ten_box_stack_steps_on_the_wide_tier():
+    """The 10-box leg (contact_cap 96: n = 288, r = 60) steps on the card:
+    one K1b launch a step, finite."""
     from nimblephysics_tpu_torch.batched import lcp_cuda
 
     dev = _cuda()
     eng, q0 = _box_engine(dev, 10, 96)
     before = lcp_cuda.apgd_seed.launches
-    with pytest.raises(NotImplementedError, match="n=288, r=60"):
+    q, v, z, _ = _box_state(dev, eng, q0, 64, 2)
+    torch.cuda.synchronize()
+    assert lcp_cuda.apgd_seed.launches == before + 2
+    assert torch.isfinite(q).all() and torch.isfinite(z).all()
+
+
+@pytest.mark.cuda
+def test_uncapped_ten_box_stack_is_refused_with_its_numbers():
+    """The 10-box stack without its contact cap (n = 1320, r = 60) is past
+    the wide tier's capacity: the step raises, nothing is launched."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    dev = _cuda()
+    eng, q0 = _box_engine(dev, 10, None)
+    before = lcp_cuda.apgd_seed.launches
+    with pytest.raises(NotImplementedError, match="n=1320, r=60"):
         _box_state(dev, eng, q0, 64, 1)
     assert lcp_cuda.apgd_seed.launches == before
 

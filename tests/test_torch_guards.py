@@ -106,13 +106,13 @@ def test_kernel_wrapper_refuses_cpu_tensors_without_launching():
 
 
 @pytest.mark.parametrize(
-    "what", ["joint_type", "pair_kind", "body_params", "max_contacts"]
+    "what", ["joint_type", "pair_kind", "multisphere_pair", "max_contacts"]
 )
 def test_off_slice_options_raise(what):
     """What the port does not take yet raises, naming its ROADMAP item:
     the spline-driven joint types (an ellipsoid joint); mesh, heightmap
-    and multisphere pairs (a mesh against the ground); body_params; and
-    World.max_contacts below the slot count."""
+    and multisphere pairs (a mesh, and a sphere set, against the ground);
+    and World.max_contacts below the slot count."""
     from nimblephysics_tpu_torch.batched import BatchedEngine
     from nimblephysics_tpu_torch.dynamics import PRISMATIC, ShapeSpec, Skeleton
     from nimblephysics_tpu_torch.models import half_cheetah
@@ -125,18 +125,13 @@ def test_off_slice_options_raise(what):
         arm = Skeleton("arm")
         arm.add_joint_and_body("ellipsoid")
         world.add_skeleton(arm)
-    elif what == "pair_kind":
+    elif what in ("pair_kind", "multisphere_pair"):
+        kind, size = (("mesh", np.zeros((4, 3))) if what == "pair_kind"
+                      else ("multisphere", np.array([[0.0, 0.0, 0.0, 0.1]])))
         rock = Skeleton("rock")
-        rock.add_joint_and_body(PRISMATIC, axis=[0, 1, 0], shapes=(
-            ShapeSpec("mesh", np.zeros((4, 3))),))
+        rock.add_joint_and_body(PRISMATIC, axis=[0, 1, 0], shapes=(ShapeSpec(kind, size),))
         world.add_skeleton(rock)
     elif what == "max_contacts":
         world.max_contacts = 4  # of the cheetah's 16 slots
-    if what == "body_params":
-        eng = BatchedEngine(world, **kw)
-        q = torch.zeros(9, 2, dtype=torch.float64)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.step(q, q, q, body_params={"masses": np.ones(11)})
-        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BatchedEngine(world, **kw)

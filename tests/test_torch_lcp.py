@@ -175,16 +175,34 @@ def test_apgd_seed_on_cpu_takes_plain_path(problems):
 
 
 def test_unsupported_solver_options_raise(problems):
-    """Names the port does not know raise instead of running something
-    else (the default config, solver "pgs" and both fallback-gradient
-    rules run: tests/test_torch_pgs.py)."""
-    import dataclasses
-
+    """Ladder modes and fallback-gradient rules the port does not know
+    raise instead of running something else (the default config, solver
+    "pgs" and both fallback-gradient rules run: tests/test_torch_pgs.py;
+    an unknown solver name runs PGS, as in the JAX package: below)."""
     jm, tm, out = problems
     args = [t64(x) for x in out["contact"]]
     with pytest.raises(ValueError, match="ladder_mode"):
         tlcp.boxed_lcp_b(tm, *args, ladder_mode="deferred")
     with pytest.raises(ValueError, match="fallback_gradients"):
         tlcp.boxed_lcp_b(tm, *args, fallback_gradients="approximate")
-    with pytest.raises(ValueError, match="solver"):
-        tlcp.boxed_lcp_b(dataclasses.replace(tm, solver="dantzig"), *args)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_unknown_solver_name_runs_pgs(problems, case):
+    """An LcpMeta.solver other than "apgd" seeds with meta.iterations PGS
+    sweeps, as the JAX package's boxed_lcp_b does for every such name:
+    the port's seed against the JAX _pgs (2 sweeps, under one jax.jit), and
+    the port's impulses equal to those of solver "pgs"."""
+    import dataclasses
+
+    jm, tm, (F, b, mu, z0), targs = _both(problems, case)
+    jm3 = dataclasses.replace(jm, solver="dantzig", iterations=2)
+    tm3 = dataclasses.replace(tm, solver="dantzig", iterations=2)
+    want = jax.jit(functools.partial(jlcp._pgs, jm3, cfm=0.0))(F=F, b=b, mu=mu, z0=z0)
+    got, z_kernel = tlcp._seed(tm3, *targs, 0.0)
+    assert z_kernel is None
+    np.testing.assert_allclose(n(got), np.asarray(want), atol=1e-10, rtol=1e-10)
+    assert not np.allclose(n(got), n(targs[3]))
+    z3 = tlcp.boxed_lcp_b(tm3, *targs)
+    z_pgs = tlcp.boxed_lcp_b(dataclasses.replace(tm3, solver="pgs"), *targs)
+    assert torch.equal(z3, z_pgs) and torch.isfinite(z3).all()

@@ -2,11 +2,12 @@
 on, on the CPU (no GPU or nvcc needed).
 
 `lcp_cuda.seed_plan` turns n, r and the card's shared memory per block
-into the padded rank (a template width of csrc/apgd_seed.cu), the rows each
-lane owns, the worlds a block holds and its bytes, or says why the card
-cannot take the LCP. The kernel pads F with zero columns up to its width;
-that is exact when zero columns change nothing, which the plain versions
-show bit for bit in float64.
+into the kernel's tier (narrow: a warp per world; wide: a block per
+world, past rank 32 or 256 rows), the padded rank (a template width of
+csrc/apgd_seed.cu), the rows each lane owns, the worlds a block holds,
+and its bytes, or says why the card cannot take the LCP. The kernel pads
+F with zero columns up to its width; that is exact when zero columns
+change nothing, which the plain versions show bit for bit in float64.
 """
 
 import re
@@ -36,13 +37,34 @@ H100_SMEM = 232448
          "mimic", "ball", "weld"])
 def test_seed_plan_fits(n, r, width, rows, worlds, stride, smem):
     plan = lcp_cuda.seed_plan(n, r, H100_SMEM)
-    assert plan.fits and plan.why == ""
+    assert plan.fits and plan.why == "" and plan.tier == "narrow"
     assert (plan.rank_width, plan.rows_per_lane, plan.worlds_per_block,
             plan.world_stride, plan.smem_bytes) == (width, rows, worlds, stride, smem)
     assert plan.lanes_per_world == 32 and plan.world_stride % 2 == 1
     # A world's region: F [n][R + 1], b, mu, z, 1 / A_ii, then u (R).
     assert plan.world_stride >= n * (width + 5) + width
     assert plan.smem_bytes == 4 * (4 * n + worlds * stride)
+
+
+@pytest.mark.parametrize(
+    "n,r,width,smem",
+    [(288, 60, 64, 12672),  # the 10-box leg's capped LCP
+     (576, 120, 128, 24192),  # the 20-box leg's: F alone is 288 KiB
+     (257, 32, 32, 11432),  # one row past the narrow tier
+     (256, 33, 64, 11392),  # one rank past it
+     (1024, 128, 128, 42112)],  # the wide tier's capacity
+    ids=["box10_cap96", "box20_cap192", "rows_257", "rank_33", "capacity"])
+def test_seed_plan_wide_tier(n, r, width, smem):
+    """A block of 256 threads per world; shared memory holds 10 vectors of
+    n words and 288 more, and F lies in a global workspace of n R floats a
+    world."""
+    plan = lcp_cuda.seed_plan(n, r, H100_SMEM)
+    assert plan.fits and plan.why == "" and plan.tier == "wide"
+    assert (plan.rank_width, plan.smem_bytes) == (width, smem)
+    assert (plan.worlds_per_block, plan.lanes_per_world, plan.rows_per_lane) == (1, 256, 0)
+    assert plan.world_stride == n * width
+    assert plan.smem_bytes == 4 * (10 * n + 288)
+    assert plan.workspace_floats == n * width
 
 
 def test_seed_plan_halves_the_block_to_fit():
@@ -52,15 +74,27 @@ def test_seed_plan_halves_the_block_to_fit():
 
 
 @pytest.mark.parametrize("n,r,limit,words", [
-    (2000, 32, H100_SMEM, ["n=2000", "r=32", "rows <= 256"]),
-    (60, 33, H100_SMEM, ["r=33", "rank <= 32"]),
-    (144, 18, 16 * 1024, ["19108 bytes", "16384"]),
+    (2000, 32, H100_SMEM, ["n=2000", "r=32", "rows <= 1024"]),
+    (60, 129, H100_SMEM, ["r=129", "rank <= 128"]),
+    (576, 120, 16 * 1024, ["24192 bytes", "16384"]),
 ], ids=["rows", "rank", "shared_memory"])
 def test_seed_plan_refuses_above_capacity(n, r, limit, words):
+    """Past the wide tier's capacity (n <= 1024, rank <= 128) or the card's
+    shared memory, the plan says why, with the
+    numbers; apgd_cuda raises with its words and launches nothing."""
     plan = lcp_cuda.seed_plan(n, r, limit)
-    assert not plan.fits
+    assert not plan.fits and plan.tier == "wide"
     for word in words:
         assert word in plan.why
+
+
+def test_the_narrow_tier_falls_to_the_wide_one_for_shared_memory():
+    """An LCP that the narrow tier holds but the card's shared memory does
+    not (the box-stack LCP at 16 KiB a block) runs on the wide tier."""
+    narrow = lcp_cuda._narrow_plan(144, 18, 16 * 1024)
+    assert not narrow.fits and "19108 bytes" in narrow.why
+    plan = lcp_cuda.seed_plan(144, 18, 16 * 1024)
+    assert plan.fits and plan.tier == "wide" and plan.workspace_floats == 144 * 32
 
 
 def test_plan_widths_are_the_kernels_instantiations():
@@ -72,6 +106,10 @@ def test_plan_widths_are_the_kernels_instantiations():
         plan = lcp_cuda.seed_plan(n, r, H100_SMEM)
         assert (plan.rank_width, plan.rows_per_lane) in built
         assert plan.rows_per_lane * 32 >= n
+    wide = re.search(r"#define WIDE_INSTANCES\(X\)(.*?)\n", src)[1]
+    assert {int(w) for w in re.findall(r"X\((\d+)\)", wide)} == set(lcp_cuda.WIDE_WIDTHS)
+    for n, r in ((288, 60), (576, 120), (300, 20), (1024, 128)):
+        assert lcp_cuda.seed_plan(n, r, H100_SMEM).rank_width in lcp_cuda.WIDE_WIDTHS
 
 
 @pytest.mark.parametrize("width", [12, 16])
