@@ -50,8 +50,12 @@ Phases (any failure exits non-zero and prints no result line):
      resident warps per SM, registers and spills; then the same on the
      10- and 20-box legs' capped LCPs (contact_cap 96: n = 288, r = 60;
      contact_cap 192: n = 576, r = 120), which take the kernel's wide
-     tier, and the refusal, with its numbers and no launch, of the 10-box
-     stack's uncapped LCP (n = 1320), past the wide tier's capacity;
+     tier (F in one CTA's shared memory, and in a cluster of two CTAs'),
+     with its placement (CTAs a cluster, shared memory a CTA, worlds a
+     SM, registers and spills) and a second planted fault (one in-block
+     Gram term of its polish dropped), and the refusal, with its numbers
+     and no launch, of the 10-box stack's uncapped LCP (n = 1320), past
+     the wide tier's capacity;
  10. the box-stack rollouts (boxstack_bench.py's legs: 2 and 3 boxes, 5
      boxes under contact_cap 48; 4096 worlds, 100 warm-started steps,
      the default SolverConfig): env-steps/s, K1b launches (one a step),
@@ -326,12 +330,18 @@ def ptxas_report(log):
     return out
 
 
-def plan_words(plan):
-    """The launch plan in words."""
+def plan_words(plan, polish=False):
+    """The launch plan in words; on the wide tier with the card's
+    residency (worlds a SM)."""
     if plan.tier == "wide":
-        return (f"wide tier, width {plan.rank_width}, a block of "
-                f"{plan.lanes_per_world} threads a world, F in the global "
-                f"workspace, {plan.smem_bytes} bytes of shared memory")
+        from nimblephysics_tpu_torch.batched import lcp_cuda
+
+        ctas, sms = lcp_cuda.wide_residency(plan, polish)
+        return (f"wide tier, width {plan.rank_width}, a cluster of {plan.cluster} "
+                f"CTA(s) of {lcp_cuda.WIDE_THREADS} threads a world, "
+                f"{plan.rows_per_cta} rows of F a CTA in shared memory, "
+                f"{plan.smem_bytes} bytes of shared memory a CTA, "
+                f"{ctas / plan.cluster / sms:.2f} worlds a SM")
     return (f"width {plan.rank_width}, {plan.rows_per_lane} rows a lane, "
             f"{plan.worlds_per_block} worlds a block, {plan.smem_bytes} bytes")
 
@@ -719,7 +729,8 @@ def box_cases(dev):
     return cases
 
 
-def engine_lcp_check(phase, label, meta, F, b, mu, zw, report, fault=None):
+def engine_lcp_check(phase, label, meta, F, b, mu, zw, report, fault=None,
+                     gram_fault=False):
     """K1 and K1b on one of the engine's own LCPs against their plain
     versions, from its warm start zw and cold (a rollout's first step):
     errors, times, bounds and the launch plan; with fault = (what, fn),
@@ -728,6 +739,9 @@ def engine_lcp_check(phase, label, meta, F, b, mu, zw, report, fault=None):
     to 1 + max|z|; where impulses are ~5e-3 they are ~1e-5 and 1e-4
     absolute and the warm-started seed has converged (one iteration or
     sweep fewer moves it ~1e-9), so the faults change the LCP itself.
+    With gram_fault, K1b is also held against the wide tier's blocked
+    polish with one in-block Gram term dropped (dropped_gram), from the
+    warm and the cold start: the larger must miss PGS_TOL.
     Returns {"n", "r", "B", "impulse_max", "k1": {...}, "k1b": {...}}."""
     from nimblephysics_tpu_torch.batched import lcp_cuda
 
@@ -747,6 +761,8 @@ def engine_lcp_check(phase, label, meta, F, b, mu, zw, report, fault=None):
         check(bool(torch.isfinite(z1).all() and torch.isfinite(z2).all()),
               f"{label}: kernel output not finite ({start})")
         errs["k1", start], errs["k1b", start] = rel_err(z1, p1), rel_err(z2, p2)
+        if gram_fault:
+            errs["gram", start] = rel_err(z2, dropped_gram(meta, F, b, mu, p1, sweeps))[1]
         if start == "warm":
             row["impulse_max"] = float(p2.abs().max())
             if fault:
@@ -766,7 +782,7 @@ def engine_lcp_check(phase, label, meta, F, b, mu, zw, report, fault=None):
         print(f"{phase} ({label}, {'K1b' if sw else 'K1 '}): n={n} r={r} B={B}: "
               f"vs plain, max|dz| and max|dz|/(1+max|z|): warm start {wa:.3e}, "
               f"{wr:.3e}; cold {ca:.3e}, {cr:.3e} (tol {tol:g}); {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); {plan_words(plan)}, "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); {plan_words(plan, sw > 0)}, "
               f"{warps} resident warps/SM, {regs} registers, {spill} bytes spilled")
         check(max(wr, cr) <= tol,
               f"{label}: {'K1b' if sw else 'K1'} disagrees with its plain version")
@@ -776,6 +792,11 @@ def engine_lcp_check(phase, label, meta, F, b, mu, zw, report, fault=None):
               f"(> {KERNEL_TOL:g}), K1b {faults[1]:.3e} (> {PGS_TOL:g})")
         check(faults[0] > KERNEL_TOL and faults[1] > PGS_TOL,
               f"{label}: the limits cannot tell {fault[0]}")
+    if gram_fault:
+        gw, gc = errs["gram", "warm"], errs["gram", "cold"]
+        print(f"{phase} ({label}): planted fault, one in-block Gram term dropped: "
+              f"K1b warm start {gw:.3e}, cold {gc:.3e} (> {PGS_TOL:g})")
+        check(max(gw, gc) > PGS_TOL, f"{label}: the limit cannot tell a dropped Gram term")
     return row
 
 
@@ -802,7 +823,8 @@ def phase9(dev, report):
         label = f"box{boxes}_cap{cap}"
         meta, F, b, mu, zw = box_lcp(dev, boxes, cap, worlds)
         out[label] = engine_lcp_check("phase 9", label, meta, F, b, mu, zw, report,
-                                      ("a dropped contact", dropped_contact))
+                                      ("a dropped contact", dropped_contact),
+                                      gram_fault=True)
         random_check(f"phase 9 ({label})", meta, F.shape[1], F.shape[2], dev, SEED + 90)
 
     # Past the wide tier's capacity: the 10-box stack's uncapped LCP is
@@ -1281,6 +1303,40 @@ def dropped_contact(meta, F, b, mu, z0, z_ref):
     Fd, bd = F * keep[:, None], b * keep
     return (lcp_cuda.apgd_plain(meta, Fd, 0.0, bd, mu, z0),
             lcp_cuda.seed_plain(meta, Fd, 0.0, bd, mu, z0))
+
+
+def dropped_gram(meta, F, b, mu, z_apgd, sweeps):
+    """pgs_plain from z_apgd with one in-block Gram term of the wide tier's
+    blocked polish dropped: in every block of WIDE_BLOCK rows, the second
+    row does not see the first one's update of the same sweep (its
+    F_1 . F_0 dz_0 left out). What a kernel that skipped the term would
+    give."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    cfm = 0.0
+    fidx = np.maximum(meta.findex, 0)
+    diag = lcp_cuda._diag_A(F, cfm)
+    inv = torch.where(diag > 1e-12, 1.0 / torch.clamp(diag, min=1e-12), torch.zeros_like(diag))
+    lo_c, hi_c = lcp_cuda._const_bounds(meta, F.dtype, F.device)
+    Fr = F.unbind(0)
+    z = list(z_apgd.unbind(0))
+    u = torch.sum(F * z_apgd[:, None, :], dim=0)
+    for _ in range(sweeps):
+        dz_first = None
+        for i in range(meta.n):
+            ui = u - Fr[i - 1] * dz_first if i % lcp_cuda.WIDE_BLOCK == 1 else u
+            zi = z[i] + (b[i] - (torch.sum(Fr[i] * ui, dim=0) + cfm * z[i])) * inv[i]
+            if meta.is_friction[i]:
+                bound = mu[i] * z[fidx[i]]
+                zi = torch.minimum(torch.maximum(zi, -bound), bound)
+            else:
+                zi = torch.minimum(torch.maximum(zi, lo_c[i]), hi_c[i])
+            dz = zi - z[i]
+            if i % lcp_cuda.WIDE_BLOCK == 0:
+                dz_first = dz
+            u = u + Fr[i] * dz
+            z[i] = zi
+    return torch.stack(z)
 
 
 def unbounded_servo(meta, F, b, mu, z0, z_ref=None):

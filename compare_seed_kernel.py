@@ -6,6 +6,7 @@ turns.
         > __pycache__/apgd_seed_old.cu
     python3 compare_seed_kernel.py --old __pycache__/apgd_seed_old.cu \
         [--alt PATH ...] [--batch 4096]
+    python3 compare_seed_kernel.py --wide-parent __pycache__/apgd_seed_parent.cu
 
 --old names a source with the one-thread-per-world design's C interface
 (apgd_seed_f32(..., cfm, stream), which sizes its own launch and takes
@@ -15,6 +16,19 @@ the ground, n = 60, r = 9), for K1 (SolverConfig.throughput()) and K1b
 (the default SolverConfig), every build is first held against the plain
 version (chip_smoke's tolerances), then timed with CUDA events over 50
 launches, in the order old, this tree's, the alternatives, and back.
+
+--wide-parent names a source whose wide tier has the global-workspace
+interface (apgd_wide_f32(..., cfm, rank_width, work, smem, stream): F
+staged into n R floats a world of device memory, 4 (10 n + 288) bytes of
+shared memory a block). On the 10- and 20-box legs' capped LCPs
+(chip_smoke.box_lcp: n = 288, r = 60 at 2048 worlds; n = 576, r = 120 at
+1024) it holds both wide tiers against the plain versions (K1, K1b, warm
+start), prints each one's placement (CTAs a cluster, shared memory a CTA,
+warps and worlds a SM, registers and spills), then times K1, K1b and the
+staging alone (0 iterations, 0 sweeps: the power iteration still runs) over
+20 launches, in the order parent, this tree's, each --wide-alt (sources
+with this tree's wide interface), and back.
+
 Prints one line per timing and, last, a JSON summary. Needs a CUDA device.
 """
 
@@ -22,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import subprocess
 import sys
@@ -83,6 +98,128 @@ def alt_launcher(path):
     return run
 
 
+def parent_wide_launcher(path):
+    """apgd_cuda's wide branch for a source with the global-workspace wide
+    tier. Returns run(meta, F, b, mu, z0, pgs_sweeps) and place(n, r,
+    polish) -> (shared memory a block, resident blocks a SM)."""
+    lib = ctypes.CDLL(str(lcp_cuda.build(source=path)[0]))
+    p, i, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    lib.apgd_wide_f32.argtypes = [p] * 9 + [i] * 5 + [ctypes.c_float, i, p, sz, p]
+    lib.apgd_wide_f32.restype = i
+    lib.apgd_wide_occupancy.argtypes = [i, i, sz]
+    lib.apgd_wide_occupancy.restype = i
+
+    def plan(n, r):
+        return next(w for w in lcp_cuda.WIDE_WIDTHS if w >= r), 4 * (10 * n + 288)
+
+    def run(meta, F, b, mu, z0, pgs_sweeps=0):
+        n, r, B = F.shape
+        width, smem = plan(n, r)
+        work = torch.empty(B * n * width, dtype=torch.float32, device=F.device)
+        z, ptrs = _args(meta, F, b, mu, z0)
+        err = lib.apgd_wide_f32(*ptrs, n, r, B, int(meta.iterations), pgs_sweeps, 0.0,
+                                width, work.data_ptr(), smem,
+                                torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{path}: wide launch failed, CUDA error {err}")
+        return z
+
+    def place(n, r, polish):
+        width, smem = plan(n, r)
+        return smem, lib.apgd_wide_occupancy(width, int(polish), smem)
+    return run, place
+
+
+def wide_alt_launcher(path):
+    """apgd_cuda's wide branch for a source with this tree's wide interface."""
+    lib = ctypes.CDLL(str(lcp_cuda.build(source=path)[0]))
+    p, i, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    lib.apgd_wide_f32.argtypes = [p] * 9 + [i] * 5 + [ctypes.c_float, i, i, i, i, sz, p]
+    lib.apgd_wide_f32.restype = i
+
+    def run(meta, F, b, mu, z0, pgs_sweeps=0):
+        n, r, B = F.shape
+        plan = lcp_cuda.seed_plan(n, r, lcp_cuda.smem_limit(F.device.index))
+        z, ptrs = _args(meta, F, b, mu, z0)
+        err = lib.apgd_wide_f32(*ptrs, n, r, B, int(meta.iterations), pgs_sweeps, 0.0,
+                                plan.rank_width, plan.cluster, plan.rows_per_cta,
+                                lcp_cuda.wide_layout(meta), plan.smem_bytes,
+                                torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{path}: wide launch failed, CUDA error {err}")
+        return z
+    return run
+
+
+def compare_wide(parent, alts=()):
+    """The parent's wide tier against this tree's (and alternatives with
+    this tree's interface), in turns, on the 10- and 20-box capped LCPs.
+    Returns {label: {form: {build: [ms, ms]}}}."""
+    dev = torch.device("cuda")
+    old, old_place = parent_wide_launcher(parent)
+    sources = [("parent", parent), ("new", lcp_cuda.SOURCE)] + [
+        (f"alt{k}:{Path(a).name}", a) for k, a in enumerate(alts)]
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc each, together
+        logs = list(pool.map(lambda src: lcp_cuda.build(verbose=True, source=src[1])[2],
+                             sources))
+    reports = {name: chip_smoke.ptxas_report(log) for (name, _), log in zip(sources, logs)}
+    builds = {"parent": old, "new": lcp_cuda.apgd_cuda}
+    for name, path in sources[2:]:
+        builds[name] = wide_alt_launcher(path)
+    summary = {}
+    for boxes, cap, worlds in chip_smoke.BOX_WIDE_LEGS:
+        label = f"box{boxes}_cap{cap}"
+        meta, F, b, mu, zw = chip_smoke.box_lcp(dev, boxes, cap, worlds)
+        n, r, B = F.shape
+        sweeps = int(meta.seed_pgs_sweeps)
+        plan = lcp_cuda.seed_plan(n, r, lcp_cuda.smem_limit(F.device.index))
+        p1 = lcp_cuda.apgd_plain(meta, F, 0.0, b, mu, zw)
+        p2 = lcp_cuda.pgs_plain(meta, F, 0.0, b, mu, p1, sweeps=sweeps)
+        for name, fn in builds.items():
+            for form, sw, want, tol in (("K1", 0, p1, chip_smoke.KERNEL_TOL),
+                                        ("K1b", sweeps, p2, chip_smoke.PGS_TOL)):
+                got = fn(meta, F, b, mu, zw, pgs_sweeps=sw)
+                torch.cuda.synchronize()
+                _, rel = chip_smoke.rel_err(got, want)
+                print(f"{label} {form} {name}: vs plain max|dz|/(1+max|z|) {rel:.3e} "
+                      f"(tol {tol:g})")
+                chip_smoke.check(rel <= tol, f"{label} {form} {name} disagrees with plain")
+        staging = dataclasses.replace(meta, iterations=0)
+        for name, fn in builds.items():
+            got = fn(staging, F, b, mu, zw)
+            torch.cuda.synchronize()
+            chip_smoke.check(torch.equal(got, zw), f"{label} {name}: 0 iterations moved z")
+        for polish in (False, True):
+            regs = {k: rep.get((plan.rank_width, 0, polish), (-1, -1))
+                    for k, rep in reports.items()}
+            smem, blocks = old_place(n, r, polish)
+            ctas, sms = lcp_cuda.wide_residency(plan, polish)
+            bound, by = chip_smoke.apgd_bound_ms(n, r, B, meta.iterations,
+                                                 sweeps if polish else 0)
+            for name in list(reports)[2:]:
+                print(f"{label} {'K1b' if polish else 'K1 '} {name}: {regs[name][0]} "
+                      f"registers, {regs[name][1]} bytes spilled")
+            print(f"{label} {'K1b' if polish else 'K1 '} placement: parent: a block of "
+                  f"256 threads a world, F in a global workspace, {smem} bytes of shared "
+                  f"memory, {blocks * 8} warps and {blocks} worlds a SM, "
+                  f"{regs['parent'][0]} registers, {regs['parent'][1]} bytes spilled; "
+                  f"new: a cluster of {plan.cluster} CTA(s), {plan.rows_per_cta} rows of F "
+                  f"a CTA in shared memory, {plan.smem_bytes} bytes a CTA, "
+                  f"{ctas * 8 // sms} warps and {ctas / plan.cluster / sms:.2f} worlds a SM, "
+                  f"{regs['new'][0]} registers, {regs['new'][1]} bytes spilled; bound "
+                  f"{bound:.4f} ms ({by}) at n={n} r={r} B={B}")
+        times = {}
+        for form, m, sw in (("staging", staging, 0), ("K1", meta, 0), ("K1b", meta, sweeps)):
+            times[form] = {name: [] for name in builds}
+            for name in list(builds) + list(builds)[::-1]:
+                ms = chip_smoke.cuda_ms(lambda: builds[name](m, F, b, mu, zw, pgs_sweeps=sw), 20)
+                times[form][name].append(ms)
+                print(f"{label} {form} {name}: {ms:.4f} ms at n={n} r={r} B={B}, "
+                      f"{m.iterations} iterations + {sw} sweeps")
+        summary[label] = times
+    return summary
+
+
 def engine_lcp(dev, solver, batch):
     """chip_smoke phase 3's engine LCP (a) under `solver`."""
     _, q0, _, eng = chip_smoke.make_engine(dev, solver)
@@ -104,6 +241,11 @@ def main() -> int:
     ap.add_argument("--alt", action="append", default=[],
                     help="source with this tree's interface (repeatable)")
     ap.add_argument("--batch", type=int, default=chip_smoke.BATCH)
+    ap.add_argument("--wide-parent",
+                    help="source with the global-workspace wide tier (times the wide tiers)")
+    ap.add_argument("--wide-alt", action="append", default=[],
+                    help="with --wide-parent: a source with this tree's wide interface "
+                         "(repeatable)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("compare_seed_kernel: no CUDA device", file=sys.stderr)
@@ -115,6 +257,10 @@ def main() -> int:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    if args.wide_parent:
+        summary = compare_wide(args.wide_parent, args.wide_alt)
+        print(json.dumps({"gpu": torch.cuda.get_device_name(0), "wide_ms": summary}))
+        return 0
     sources = [lcp_cuda.SOURCE] + ([args.old] if args.old else []) + args.alt
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc each, together
         list(pool.map(lambda src: lcp_cuda.build(source=src), sources))

@@ -19,8 +19,8 @@ library with a plain C interface, loaded with ctypes). Nothing here is
 built or imported from a GPU toolchain when the module is imported.
 `seed_plan` is its launch plan against the card's limits, which the
 library reports: the narrow tier (a warp per world, rank <= 32, n <= 256)
-where it fits, else the wide tier (a block per world, rank <= 128,
-n <= 1024, F in a global workspace).
+where it fits, else the wide tier (a CTA, or a cluster of 2 or 4 CTAs,
+per world, rank <= 128, n <= 1024, F held in the CTAs' shared memory).
 """
 
 from __future__ import annotations
@@ -68,16 +68,35 @@ INSTANCES = tuple((w, k) for k in ROWS_PER_LANE for w in RANK_WIDTHS
                   if k == 8 or w <= 16)
 LANES_PER_WORLD = 32  # a warp per world in the APGD phases
 WORLDS_PER_BLOCK = 8  # eight consecutive worlds: one 32-byte sector a row
-# The wide tier (WIDE_INSTANCES in csrc/apgd_seed.cu): a block of
-# WIDE_THREADS threads per world, the rank padded to the first of
-# WIDE_WIDTHS that holds it, up to WIDE_MAX_ROWS rows. Its shared memory
-# holds 10 vectors of n words and WIDE_EXTRA words; F [n][R] lies in a
-# global workspace of n R floats a world.
+# The wide tier (WIDE_INSTANCES in csrc/apgd_seed.cu): a cluster of 1, 2
+# or 4 CTAs (WIDE_CLUSTERS) of WIDE_THREADS threads per world, the rank
+# padded to the first of WIDE_WIDTHS that holds it, up to WIDE_MAX_ROWS
+# rows. Each CTA holds its share of the rows, a multiple of WIDE_BLOCK (the
+# polish's blocks: two groups of WIDE_GROUP, the rows a warp takes at a
+# time) and at most WIDE_CTA_ROWS (six groups a warp), of F [row][R] in its
+# shared memory (wide_smem_bytes).
 WIDE_WIDTHS = (32, 64, 128)
 WIDE_MAX_ROWS = 1024
 WIDE_THREADS = 256
-WIDE_VECTORS = 10
-WIDE_EXTRA = WIDE_THREADS + 32
+WIDE_WARPS = WIDE_THREADS // 32
+WIDE_GROUP = 6
+WIDE_BLOCK = 2 * WIDE_GROUP
+WIDE_CTA_ROWS = WIDE_WARPS * 6 * WIDE_GROUP
+WIDE_CLUSTERS = (1, 2, 4)
+# A polish block's Gram terms, F_i . F_m / A_ii for m < i < WIDE_BLOCK (66),
+# padded.
+WIDE_GRAM_STRIDE = 68
+
+
+def wide_smem_bytes(width: int, cluster: int, rows: int) -> int:
+    """Shared memory of one wide-tier CTA (wide_smem_floats in
+    csrc/apgd_seed.cu): F [rows][width]; the Gram terms (N / WIDE_BLOCK
+    blocks of WIDE_GRAM_STRIDE, N = cluster rows); the polish's row inputs
+    (4 N), z and the friction code (N each); the warps' and the CTA's
+    partial sums, 2 (WIDE_WARPS + 1) sets of width + 1."""
+    N = cluster * rows
+    return 4 * (rows * width + N // WIDE_BLOCK * WIDE_GRAM_STRIDE + 6 * N
+                + 2 * (WIDE_WARPS + 1) * (width + 1))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,16 +104,18 @@ class SeedPlan:
     """How the kernel runs an LCP of n rows and rank r on a card.
 
     tier: "narrow" (a warp per world, F in shared memory, several worlds a
-    block) or "wide" (a block per world). rank_width: the template width
-    r is padded to (0: no tier holds the LCP); rows_per_lane: the rows a
-    lane owns in the narrow tier (0 in the wide one); lanes_per_world:
-    threads per world; worlds_per_block: worlds a block holds (narrow:
-    halved from WORLDS_PER_BLOCK until the block fits; wide: 1);
-    world_stride: floats of one world's shared-memory region (narrow: odd,
-    so that the polish's lanes, one per world, fall on distinct banks) or
-    of its F in the global workspace (wide); smem_bytes: shared memory per
-    block; fits: whether the card (smem_limit bytes a block) takes it, and
-    if not, why.
+    block) or "wide" (a CTA or a cluster of CTAs per world, F in their
+    shared memory). rank_width: the template width r is padded to (0: no
+    tier holds the LCP); rows_per_lane: the rows a lane owns in the narrow
+    tier (0 in the wide one); lanes_per_world: threads per world;
+    worlds_per_block: worlds a block holds (narrow: halved from
+    WORLDS_PER_BLOCK until the block fits; wide: 1); world_stride: floats
+    of one world's shared-memory region (narrow: odd, so that the polish's
+    lanes, one per world, fall on distinct banks) or of the F rows a CTA
+    holds (wide); smem_bytes: shared memory per block (CTA); fits: whether
+    the card (smem_limit bytes a block) takes it, and if not, why;
+    cluster: CTAs per world (wide; 1 in the narrow tier); rows_per_cta:
+    the rows each of them holds (wide).
     """
 
     n: int
@@ -109,11 +130,8 @@ class SeedPlan:
     fits: bool
     why: str = ""
     tier: str = "narrow"
-
-    @property
-    def workspace_floats(self) -> int:
-        """Floats of global workspace a world needs (the wide tier's F)."""
-        return self.world_stride if self.tier == "wide" else 0
+    cluster: int = 1
+    rows_per_cta: int = 0
 
 
 def _narrow_plan(n: int, r: int, smem_limit: int) -> SeedPlan:
@@ -144,18 +162,26 @@ def _narrow_plan(n: int, r: int, smem_limit: int) -> SeedPlan:
 
 
 def _wide_plan(n: int, r: int, smem_limit: int) -> SeedPlan:
+    """The smallest cluster (1, 2 or 4 CTAs) whose CTAs each hold their
+    share of the rows (rounded up to whole polish blocks, at most
+    WIDE_CTA_ROWS) and of F within the card's shared memory per block."""
     width = next((w for w in WIDE_WIDTHS if w >= r), 0)
     if not width or n > WIDE_MAX_ROWS:
         return SeedPlan(n, r, width, 0, WIDE_THREADS, 0, 0, 0, smem_limit, False,
                         f"n={n}, r={r} is beyond the kernel's capacity (rank <= "
                         f"{WIDE_WIDTHS[-1]}, rows <= {WIDE_MAX_ROWS})", "wide")
-    smem = 4 * (WIDE_VECTORS * n + WIDE_EXTRA)
-    fits = smem <= smem_limit
-    why = "" if fits else (
-        f"n={n}, r={r} (width {width}) needs {smem} bytes of shared memory "
-        f"for one world, above the card's {smem_limit} per block")
-    return SeedPlan(n, r, width, 0, WIDE_THREADS, 1, n * width, smem, smem_limit,
-                    fits, why, "wide")
+    for cluster in WIDE_CLUSTERS:
+        share = -(-n // cluster)
+        rows = WIDE_BLOCK * -(-share // WIDE_BLOCK)
+        smem = wide_smem_bytes(width, cluster, rows)
+        if rows <= WIDE_CTA_ROWS and smem <= smem_limit:
+            return SeedPlan(n, r, width, 0, WIDE_THREADS * cluster, 1, rows * width,
+                            smem, smem_limit, True, "", "wide", cluster, rows)
+    return SeedPlan(n, r, width, 0, WIDE_THREADS * cluster, 1, rows * width, smem,
+                    smem_limit, False,
+                    f"n={n}, r={r} (width {width}) needs {smem} bytes of shared "
+                    f"memory a CTA in a cluster of {cluster}, above the card's "
+                    f"{smem_limit} per block", "wide", cluster, rows)
 
 
 @functools.lru_cache(maxsize=64)
@@ -163,7 +189,8 @@ def seed_plan(n: int, r: int, smem_limit: int) -> SeedPlan:
     """The launch plan of apgd_cuda for F (n, r, B) on a card that lets a
     block opt into smem_limit bytes of shared memory: the narrow tier
     where one of its instantiations holds the LCP and fits, else the wide
-    tier (F in a global workspace), else a refusal that says why.
+    tier (F in the shared memory of a CTA or of a cluster of CTAs), else a
+    refusal that says why.
     """
     plan = _narrow_plan(n, r, smem_limit)
     return plan if plan.fits else _wide_plan(n, r, smem_limit)
@@ -311,9 +338,9 @@ def _library() -> ctypes.CDLL:
     lib.apgd_seed_occupancy.argtypes = [i, i, i, i, z]
     lib.apgd_seed_occupancy.restype = i
     lib.apgd_wide_f32.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i,
-                                  ctypes.c_float, i, p, z, p]
+                                  ctypes.c_float, i, i, i, i, z, p]
     lib.apgd_wide_f32.restype = i
-    lib.apgd_wide_occupancy.argtypes = [i, i, z]
+    lib.apgd_wide_occupancy.argtypes = [i, i, i, z]
     lib.apgd_wide_occupancy.restype = i
     return lib
 
@@ -324,13 +351,25 @@ def smem_limit(device_index: int) -> int:
     return int(_library().apgd_seed_smem_limit(device_index))
 
 
+def wide_residency(plan: SeedPlan, polish: bool) -> Tuple[int, int]:
+    """(CTAs of the wide tier resident on the whole card at this plan,
+    the card's SMs): cudaOccupancyMaxActiveBlocksPerMultiprocessor times
+    the SMs, or cudaOccupancyMaxActiveClusters times the cluster."""
+    ctas = _library().apgd_wide_occupancy(
+        plan.rank_width, int(polish), plan.cluster, plan.smem_bytes)
+    if ctas < 0:
+        raise RuntimeError("apgd_wide_occupancy failed")
+    return ctas, torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+
+
 def resident_warps(plan: SeedPlan, polish: bool) -> int:
     """Warps of the kernel resident on one SM at this plan
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the block's
-    warps)."""
+    warps; the wide tier's CTAs on the card spread over its SMs)."""
     if plan.tier == "wide":
-        blocks = _library().apgd_wide_occupancy(
-            plan.rank_width, int(polish), plan.smem_bytes)
+        ctas, sms = wide_residency(plan, polish)
+        return ctas * (WIDE_THREADS // 32) // sms
     else:
         blocks = _library().apgd_seed_occupancy(
             plan.rank_width, plan.rows_per_lane, int(polish),
@@ -338,6 +377,25 @@ def resident_warps(plan: SeedPlan, polish: bool) -> int:
     if blocks < 0:
         raise RuntimeError("apgd_seed_occupancy failed")
     return blocks * plan.worlds_per_block * plan.lanes_per_world // 32
+
+
+@functools.lru_cache(maxsize=64)
+def wide_layout(meta: LcpMeta) -> int:
+    """The wide tier's layout code. 2: the friction rows are the
+    assembler's contact triples (rows 3 c + 1 and 3 c + 2 bounded by row
+    3 c for a prefix of the rows, no friction after it, or no friction at
+    all), so the polish bounds a friction row by its normal's new z without
+    reading memory. 1: every friction row's normal lies in the row's
+    aligned group of WIDE_GROUP rows, so an APGD iteration clips friction
+    inside a warp and reads F once. 0: neither."""
+    fr = np.flatnonzero(meta.is_friction)
+    if fr.size == 0:
+        return 2
+    normal = np.maximum(meta.findex[fr], 0)
+    rows = np.arange(3 * (int(fr.max()) // 3 + 1))
+    if np.array_equal(fr, rows[rows % 3 > 0]) and np.array_equal(normal, fr - fr % 3):
+        return 2
+    return int(np.all(normal // WIDE_GROUP == fr // WIDE_GROUP))
 
 
 @functools.lru_cache(maxsize=16)
@@ -391,16 +449,12 @@ def apgd_cuda(meta: LcpMeta, F, b, mu, z0, cfm: float = 0.0,
     z = torch.empty_like(b)
     stream = torch.cuda.current_stream(F.device).cuda_stream
     if plan.tier == "wide":
-        # The workspace is freed to the caching allocator on this stream,
-        # which reuses it only for work queued after the kernel.
-        work = torch.empty(B * plan.workspace_floats, dtype=torch.float32,
-                           device=F.device)
         err = _library().apgd_wide_f32(
             F.data_ptr(), b.data_ptr(), mu.data_ptr(), z0.data_ptr(), z.data_ptr(),
             isf.data_ptr(), fidx.data_ptr(), lo.data_ptr(), hi.data_ptr(),
             n, r, B, int(meta.iterations), int(pgs_sweeps), float(cfm),
-            plan.rank_width, work.data_ptr(),
-            plan.smem_bytes, stream,
+            plan.rank_width, plan.cluster, plan.rows_per_cta,
+            wide_layout(meta), plan.smem_bytes, stream,
         )
         if err != 0:
             raise RuntimeError(f"apgd_seed wide kernel launch failed: CUDA error {err}")

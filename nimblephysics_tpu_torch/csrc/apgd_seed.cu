@@ -69,7 +69,10 @@
 
 #include <cfloat>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -450,136 +453,305 @@ __global__ void __launch_bounds__(kLanes * kMaxWorldsPerBlock)
 // The wide tier: LCPs past the instantiations above (rank > 32 or n > 256),
 // up to n = 1024 rows and rank 128, such as a 10-box stack's capped LCP
 // (n = 288, r = 60) or a 20-box stack's (n = 576, r = 120). A world's F
-// no longer fits a warp's registers, and the 20-box one (276 KB) not even
-// a block's shared memory, so a world is a block of kWideThreads threads:
-//   * the block stages its world's F from the public (n, r, B) layout as
-//     [row][R] (R = r padded with zero columns to 32, 64 or 128) into its
-//     own region of a global workspace that the caller allocates; every
-//     later read of F is coalesced and hits L2 while the SM works on that
-//     world;
-//   * u = F^T y: thread t sums column t mod R over the rows t / R,
-//     t / R + 256 / R, ..., and the 256 / R partial columns are added
-//     through shared memory;
-//   * F u: a warp takes eight rows at a time, each lane the columns
-//     lane + 32 k, and one reduce-scatter (halve<8, 16>, 9 shuffles for
-//     eight rows) leaves row m's sum in lanes 4 m .. 4 m + 3, lane 4 m
-//     updates the row; the friction rows are clipped after every row's
-//     normal is projected (one barrier);
-//   * the polish is sequential across rows, so warp 0 runs it: u (R) is
-//     spread over the lanes, row i + 1's F and statics are fetched while
-//     row i is reduced, and each row costs one 5-level warp sum.
+// does not fit a warp's registers, so a world is a CTA of kWideThreads
+// threads, or a cluster of 2 or 4 of them where one CTA cannot hold it.
+// F stays on chip for the whole launch:
+//   * each CTA stages its share of the rows once, from the public
+//     (n, r, B) layout, as [row][R] (R = r padded with zero columns to 32,
+//     64 or 128) into its shared memory: the 10-box F (72 KiB) in one CTA,
+//     two CTAs a SM; the 20-box F (288 KiB, past the 227 KB a CTA may
+//     take) in a cluster of two CTAs of 144 KiB each. Nothing of F is read
+//     from device memory after that;
+//   * rows are taken in groups of kGroup = 6 (two contact triples), a
+//     warp's groups fixed for the launch; lane 4 m owns the group's row m
+//     and keeps its z, z_prev, y, b, mu and bounds in registers;
+//   * one pass over F an iteration: a warp loads a group's F rows into
+//     registers, forms F_i . u (one reduce-scatter, halve<8, 16>, for six
+//     rows), updates the rows, clips a friction row by its normal (a
+//     shuffle: the assembler's contact triples keep the normal in the
+//     group), forms the next y and adds F_i^T y_i into the next u with the
+//     same registers. Where some friction row's normal lies in another
+//     group (no layout the assembler builds), the rows wait for every
+//     normal (a CTA or cluster barrier) and the group's F is read a second
+//     time. The power iteration folds its normalisation into u the same
+//     way (u = F^T (A v) / |A v|), so it takes one pass an iteration too;
+//   * u is summed over the warps through shared memory and over a
+//     cluster's CTAs through distributed shared memory, in a fixed order,
+//     so every warp of every CTA holds the same u;
+//   * the polish (K1b) runs on warp 0 of the cluster's first CTA, in
+//     blocks of two groups (12 rows): the block's twelve F_i . u in one
+//     reduce-scatter, then the twelve row updates on scalars with the
+//     in-block Gram terms G_im = F_i . F_m (m < i, formed once before the
+//     first sweep, scaled by 1 / A_ii): z_i + (b_i - F_i . u - cfm z_i) /
+//     A_ii - sum_{m < i} (G_im / A_ii) dz_m, the same z as row-by-row
+//     Gauss-Seidel. Each dz_m is folded into the later rows' sums as soon
+//     as it is known, so a row's dependent chain is dz_{i-1}, one FMA, the
+//     clip and dz_i; then one u += F_blk^T dz_blk. Rows of another CTA are
+//     read through distributed shared memory.
 // The arithmetic is the narrow tier's (the header above); only the order
-// of the sums differs.
+// of the sums differs. What bounds it on this card: the least time for the
+// work (2 n r FMAs an operator application, 39 of them and the polish's
+// sweeps) is ~0.1-0.25 ms at the card's f32 peak on the box LCPs; the
+// polish is a chain of n x sweeps dependent row updates a world on one
+// warp, and F on chip leaves room for two worlds a SM (10 boxes) or half
+// of one (20 boxes), so its latency sets the time (PERF.md).
 
 constexpr int kWideThreads = 256;
 constexpr int kWideWarps = kWideThreads / kLanes;
-// Floats of shared memory besides F: lo, hi, is_friction, findex, b, mu,
-// z, z_prev, y and the inverse diagonal (n each), the partial columns
-// (kWideThreads) and the block reductions (32).
-constexpr int kWideVectors = 10;
-constexpr int kWideExtra = kWideThreads + 32;
+constexpr int kGroup = 6;           // rows of a group: two contact triples
+constexpr int kGroupsPerWarp = 6;   // so a CTA holds up to 288 rows
+constexpr int kCtaRows = kWideWarps * kGroupsPerWarp * kGroup;
+// The polish's blocks: two groups. A block's Gram terms F_i . F_m / A_ii
+// for m < i < kBlock, packed at m + i (i - 1) / 2, padded to 68 floats.
+constexpr int kBlock = 2 * kGroup;
+constexpr int kGramStride = 68;
+constexpr int kMaxCluster = 4;
 
-// Block-wide sum or max of x, the same value in every thread (a fixed
-// order over the warps).
-template <bool kMax>
-__device__ __forceinline__ float block_reduce(float x, float* red) {
-  x = kMax ? warp_max(x) : warp_sum(x);
-  __syncthreads();  // red is free: every thread has read the last result
-  if ((threadIdx.x & (kLanes - 1)) == 0) red[threadIdx.x >> 5] = x;
-  __syncthreads();
-  float s = red[0];
-#pragma unroll
-  for (int k = 1; k < kWideWarps; ++k) s = kMax ? fmaxf(s, red[k]) : s + red[k];
-  return s;
+// Shared memory of a CTA, in floats, at rank width R, a cluster of C CTAs
+// of nl rows each (N = C nl, indexed by the global row): F [nl][R]; the
+// Gram terms (N / kBlock blocks of kGramStride); the polish's row inputs
+// {b, 1 / A_ii, lo, hi} (lo, hi = -mu, mu for a friction row) (4 N); z
+// and the friction code (N each); the warps' partial sums of u and of one
+// scalar, two sets of kWideWarps (R + 1); the CTA's sums for the cluster,
+// two sets of R + 1.
+__host__ __device__ constexpr size_t wide_smem_floats(int R, int C, int nl) {
+  return (size_t)nl * R + (size_t)C * nl / kBlock * kGramStride + 6 * (size_t)C * nl +
+         (size_t)2 * (kWideWarps + 1) * (R + 1);
 }
 
-// u = F^T y over the block: partial columns into part (kWideThreads
-// floats), then each lane of every warp gathers u[lane + 32 k].
-template <int R>
-__device__ __forceinline__ void wide_FTy(const float* Fw, const float* sy,
-                                         float* part, int n, float (&u)[R / 32]) {
-  constexpr int G = kWideThreads / R;
-  const int tid = threadIdx.x;
-  const int j = tid & (R - 1);
-  const int g = tid / R;
-  float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  int i = g;
-#pragma unroll 1
-  for (; i + 3 * G < n; i += 4 * G) {
-#pragma unroll
-    for (int m = 0; m < 4; ++m) a[m] += Fw[(size_t)(i + m * G) * R + j] * sy[i + m * G];
-  }
-  for (; i < n; i += G) a[0] += Fw[(size_t)i * R + j] * sy[i];
-  part[tid] = (a[0] + a[1]) + (a[2] + a[3]);
-  __syncthreads();
-  const int lane = tid & (kLanes - 1);
-#pragma unroll
-  for (int k = 0; k < R / 32; ++k) {
-    float s = 0.0f;
-#pragma unroll
-    for (int gg = 0; gg < G; ++gg) s += part[gg * R + 32 * k + lane];
-    u[k] = s;
-  }
-}
-
-// For every row i: row(i, F_i . u) in one lane, eight rows a warp at a
-// time. With kSquares, F_i . F_i instead.
-template <int R, bool kSquares, typename Row>
-__device__ __forceinline__ void wide_rows(const float* Fw, int n,
-                                          const float (&u)[R / 32], Row row) {
-  constexpr int NJ = R / 32;
+// u and a scalar summed (the scalar's maximum with kMax) over the CTA's
+// warps and the cluster's CTAs, the same values in every thread. The warps'
+// sums go to part (two sets, alternating, so that a warp may run ahead
+// into the next pass), the CTA's to xch, read by every CTA of the cluster
+// in rank order after one cluster barrier.
+template <int R, bool kVec, bool kMax>
+__device__ __forceinline__ float wide_reduce(float (&u)[R / 32], float s,
+                                             float* part, float* xch,
+                                             int& par, int C,
+                                             cg::cluster_group& cluster) {
+  constexpr int NJ = R / 32, S = R + 1;
   const int lane = threadIdx.x & (kLanes - 1);
   const int warp = threadIdx.x >> 5;
-#pragma unroll 1
-  for (int i0 = 8 * warp; i0 < n; i0 += 8 * kWideWarps) {
-    float p[8];
+  float* const pp = part + par * kWideWarps * S;
+  s = kMax ? warp_max(s) : warp_sum(s);
+  if constexpr (kVec) {
 #pragma unroll
-    for (int m = 0; m < 8; ++m) {
-      p[m] = 0.0f;
-      if (i0 + m < n) {
+    for (int j = 0; j < NJ; ++j) pp[warp * S + 32 * j + lane] = u[j];
+  }
+  if (lane == 0) pp[warp * S + R] = s;
+  __syncthreads();
+  const float* src = pp;
+  int parts = kWideWarps;
+  if (C > 1) {
+    float* const x = xch + par * S;
+    for (int t = threadIdx.x; t <= R; t += kWideThreads) {
+      if (kVec || t == R) {
+        float a = pp[t];
 #pragma unroll
-        for (int k = 0; k < NJ; ++k) {
-          const float f = Fw[(size_t)(i0 + m) * R + 32 * k + lane];
-          p[m] += f * (kSquares ? f : u[k]);
-        }
+        for (int w = 1; w < kWideWarps; ++w)
+          a = (kMax && t == R) ? fmaxf(a, pp[w * S + t]) : a + pp[w * S + t];
+        x[t] = a;
       }
     }
-    halve<8, kLanes / 2>(p, lane);
-    const int i = i0 + ((lane >> 2) & 7);
-    if ((lane & 3) == 0 && i < n) row(i, p[0]);
+    cluster.sync();
+    src = x;
+    parts = C;
+  }
+  // The k-th of the parts terms: warp k's sums, or CTA k's.
+  auto term = [&](int k, int t) -> float {
+    return C > 1 ? cluster.map_shared_rank(const_cast<float*>(src), k)[t] : src[k * S + t];
+  };
+  if constexpr (kVec) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      float a = term(0, 32 * j + lane);
+      for (int k = 1; k < parts; ++k) a += term(k, 32 * j + lane);
+      u[j] = a;
+    }
+  }
+  float t = term(0, R);
+  for (int k = 1; k < parts; ++k) t = kMax ? fmaxf(t, term(k, R)) : t + term(k, R);
+  par ^= 1;
+  return t;
+}
+
+// F_m . v for a group's rows m < kGroup over the warp: lane l holds
+// columns l + 32 j of the rows (f) and of v. Returns, in lanes 4 m .. 4 m + 3,
+// row m's sum.
+template <int NJ>
+__device__ __forceinline__ float group_dot(const float (&f)[kGroup][NJ],
+                                           const float (&v)[NJ], int lane) {
+  float p[8];
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    p[m] = 0.0f;
+    if (m < kGroup) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) p[m] = fmaf(f[m][j], v[j], p[m]);
+    }
+  }
+  halve<8, kLanes / 2>(p, lane);
+  return p[0];
+}
+
+// up += F_grp^T y, with row m's y in lane 4 m.
+template <int NJ>
+__device__ __forceinline__ void group_accumulate(const float (&f)[kGroup][NJ],
+                                                 float y, float (&up)[NJ]) {
+#pragma unroll
+  for (int m = 0; m < kGroup; ++m) {
+    const float ym = __shfl_sync(kFull, y, 4 * m);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) up[j] = fmaf(f[m][j], ym, up[j]);
   }
 }
 
-// What one polish row reads besides z.
 template <int NJ>
-struct WideRow {
-  float f[NJ];
-  float b, inv, mu, lo, hi;
-  int fr, fi;
-};
-
-template <int R>
-__device__ __forceinline__ void load_wide_row(
-    WideRow<R / 32>& row, int i, int lane, const float* Fw, const float* sb,
-    const float* sinv, const float* smu, const float* slo, const float* shi,
-    const int* sisf, const int* sfidx) {
+__device__ __forceinline__ void load_group(float (&f)[kGroup][NJ],
+                                           const float* rows, int lane) {
 #pragma unroll
-  for (int k = 0; k < R / 32; ++k) row.f[k] = Fw[(size_t)i * R + 32 * k + lane];
-  row.b = sb[i];
-  row.inv = sinv[i];
-  row.mu = smu[i];
-  row.lo = slo[i];
-  row.hi = shi[i];
-  row.fr = sisf[i];
-  row.fi = sfidx[i];
+  for (int m = 0; m < kGroup; ++m) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) f[m][j] = rows[m * NJ * 32 + 32 * j + lane];
+  }
 }
 
-// One block per world, kWideThreads threads. Shared memory: lo, hi,
-// is_friction, findex, b, mu, z, z_prev, y, the diagonal / its inverse
-// (n each), the partial columns and the reductions (kWideExtra). World
-// w's F is work[w n R ...].
+// F_m . v for a block's rows m < kBlock (two groups) over the warp.
+// Returns, in lanes 2 m and 2 m + 1, row m's sum.
+template <int NJ>
+__device__ __forceinline__ float block_dot(const float (&f0)[kGroup][NJ],
+                                           const float (&f1)[kGroup][NJ],
+                                           const float (&v)[NJ], int lane) {
+  float p[16];
+#pragma unroll
+  for (int m = 0; m < 16; ++m) {
+    p[m] = 0.0f;
+    if (m < kBlock) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        p[m] = fmaf(m < kGroup ? f0[m][j] : f1[m - kGroup][j], v[j], p[m]);
+    }
+  }
+  halve<16, kLanes / 2>(p, lane);
+  return p[0];
+}
+
+// The polish on one warp (K1b): `sweeps` projected Gauss-Seidel sweeps in
+// blocks of kBlock rows. u (lane l: columns l + 32 j) enters as F^T z. z,
+// the row inputs, the friction code and the Gram terms are the cluster's
+// first CTA's (this one's); F rows of group g lie in CTA g / ngl's shared
+// memory. Every lane runs the rows' scalar updates and stores z itself.
+// kTriples: the rows are the assembler's contact triples (a friction row's
+// normal is the first row of its triple) and then rows without friction,
+// so a friction row's bound reads its normal's new z from a register, and
+// a lane reads z only where it wrote it. Otherwise the normal's z is read
+// from shared memory (or taken from this block's rows where it came
+// earlier in them), after the warp's stores of the previous block.
+template <int R, bool kTriples>
+__device__ __forceinline__ void wide_polish(float (&u)[R / 32], const float* sF,
+                                            float* sz, const float4* srow,
+                                            const int* scode, const float* sgram,
+                                            int n, int nl, int C, int sweeps,
+                                            float cfm, cg::cluster_group& cluster) {
+  constexpr int NJ = R / 32;
+  const int lane = threadIdx.x & (kLanes - 1);
+  const int ngl = nl / kGroup;
+  const int nblocks = (n + kBlock - 1) / kBlock;
+  const int total = sweeps * nblocks;
+  auto rows_of = [&](int g) -> float* {
+    const int c = g / ngl;
+    float* p = const_cast<float*>(sF) + (size_t)(g - c * ngl) * kGroup * R;
+    return C > 1 ? cluster.map_shared_rank(p, c) : p;
+  };
+  // With one CTA a SM (R = 128) the registers hold the next block's F rows
+  // too, fetched (through distributed shared memory where another CTA
+  // holds them) while this block is solved; at two CTAs a SM a block reads
+  // its own rows, from its own CTA's shared memory.
+  constexpr bool kPrefetch = R > 64;
+  int blk = 0;
+  // One block: its F rows (c0, c1), the next block's (n0, n1). The body has
+  // no branch, so that the compiler can schedule it whole.
+  auto block = [&](float (&c0)[kGroup][NJ], float (&c1)[kGroup][NJ],
+                   float (&n0)[kGroup][NJ], float (&n1)[kGroup][NJ]) {
+    const int next = blk + 1 == nblocks ? 0 : blk + 1;
+    const int i0 = blk * kBlock;
+    if constexpr (kPrefetch) {
+      load_group(n0, rows_of(2 * next), lane);
+      load_group(n1, rows_of(2 * next + 1), lane);
+    } else {
+      load_group(c0, rows_of(2 * blk), lane);
+      load_group(c1, rows_of(2 * blk + 1), lane);
+    }
+    const float* const h = sgram + blk * kGramStride;  // G_im / A_ii
+    const float p = block_dot(c0, c1, u, lane);
+    // acc_i: row i's new value before the clip, less the terms of the
+    // block's rows not yet solved: z_i + (b_i - F_i . u - cfm z_i) / A_ii.
+    float acc[kBlock], zb[kBlock], lo[kBlock], hi[kBlock];
+    int code[kBlock];
+#pragma unroll
+    for (int m = 0; m < kBlock; ++m) {
+      const float4 in = srow[i0 + m];  // b, 1 / A_ii, lo, hi (-mu, mu: friction)
+      code[m] = scode[i0 + m];
+      zb[m] = sz[i0 + m];
+      lo[m] = in.z;
+      hi[m] = in.w;
+      const float pm = __shfl_sync(kFull, p, 2 * m);
+      acc[m] = zb[m] + (in.x - (pm + cfm * zb[m])) * in.y;
+    }
+    // Row by row: clip, then dz_m off the later rows and into u. z is
+    // stored after the block, so that no store stands between the loads
+    // above and their use.
+    float x[kBlock];
+#pragma unroll
+    for (int m = 0; m < kBlock; ++m) {
+      float rlo = lo[m], rhi = hi[m];
+      if (!kTriples || m % 3) {
+        float zn;
+        if constexpr (kTriples) {
+          zn = x[m - m % 3];
+        } else {
+          zn = sz[max(code[m], 0)];  // the normal's z, unless it came earlier here
+#pragma unroll
+          for (int k = 0; k < m; ++k) zn = code[m] == i0 + k ? x[k] : zn;
+        }
+        const bool fr = code[m] >= 0;
+        rlo = fr ? rlo * zn : rlo;
+        rhi = fr ? rhi * zn : rhi;
+      }
+      x[m] = fminf(fmaxf(acc[m], rlo), rhi);
+      const float dz = x[m] - zb[m];
+#pragma unroll
+      for (int i = m + 1; i < kBlock; ++i) acc[i] = fmaf(-h[m + i * (i - 1) / 2], dz, acc[i]);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        u[j] = fmaf(m < kGroup ? c0[m][j] : c1[m - kGroup][j], dz, u[j]);
+    }
+#pragma unroll
+    for (int m = 0; m < kBlock; ++m) sz[i0 + m] = x[m];  // every lane, the same value
+    if constexpr (!kTriples) __syncwarp();  // other lanes' z, read as a normal's
+    blk = next;
+  };
+  float a0[kGroup][NJ], a1[kGroup][NJ];
+  if constexpr (kPrefetch) {
+    float b0[kGroup][NJ], b1[kGroup][NJ];
+    load_group(a0, rows_of(0), lane);
+    load_group(a1, rows_of(1), lane);
+    for (int t = 0; t < total; t += 2) {
+      block(a0, a1, b0, b1);
+      if (t + 1 < total) block(b0, b1, a0, a1);
+    }
+  } else {
+    for (int t = 0; t < total; ++t) block(a0, a1, a0, a1);
+  }
+}
+
+// A cluster of C CTAs (1, 2 or 4) of kWideThreads threads per world; CTA
+// c of world w is block w C + c and holds rows [c nl, c nl + nl), nl a
+// multiple of kBlock, at most kCtaRows. layout: 2 if the friction rows are
+// the assembler's contact triples (wide_polish's kTriples), 1 if every
+// friction row's normal lies in its group of kGroup rows, else 0.
 template <int R, bool kPolish>
-__global__ void __launch_bounds__(kWideThreads)
+__global__ void __launch_bounds__(kWideThreads, R <= 64 ? 2 : 1)
     apgd_wide_kernel(const float* __restrict__ F, const float* __restrict__ b,
                      const float* __restrict__ mu,
                      const float* __restrict__ z0, float* __restrict__ z_out,
@@ -587,140 +759,311 @@ __global__ void __launch_bounds__(kWideThreads)
                      const int* __restrict__ findex,
                      const float* __restrict__ lo,
                      const float* __restrict__ hi, int n, int r, int B,
-                     int iterations, int pgs_sweeps, float cfm, float* work) {
+                     int iterations, int pgs_sweeps, float cfm, int C, int nl,
+                     int layout) {
   constexpr int NJ = R / 32;
+  constexpr int GW = kGroupsPerWarp;
+  const bool grouped = layout > 0;
   extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
   const int lane = tid & (kLanes - 1);
-  const int w = blockIdx.x;
+  const int warp = tid >> 5;
+  const int rank = C > 1 ? (int)cluster.block_rank() : 0;
+  const int w = blockIdx.x / C;
+  const int N = C * nl;
+  const int row0 = rank * nl;
+  const int ngl = nl / kGroup;
 
-  float* const slo = smem;
-  float* const shi = slo + n;
-  int* const sisf = reinterpret_cast<int*>(shi + n);
-  int* const sfidx = sisf + n;
-  float* const sb = smem + 4 * n;
-  float* const smu = sb + n;
-  float* const sz = smu + n;
-  float* const szp = sz + n;
-  float* const sy = szp + n;
-  float* const sinv = sy + n;
-  float* const part = smem + kWideVectors * n;
-  float* const red = part + kWideThreads;
-  float* const Fw = work + (size_t)w * n * R;
+  float* const sF = smem;
+  float* const sgram = sF + (size_t)nl * R;
+  float4* const srow = reinterpret_cast<float4*>(sgram + (size_t)(N / kBlock) * kGramStride);
+  float* const sz = reinterpret_cast<float*>(srow + N);
+  int* const scode = reinterpret_cast<int*>(sz + N);
+  float* const part = reinterpret_cast<float*>(scode + N);
+  float* const xch = part + 2 * kWideWarps * (R + 1);
+  // The cluster's first CTA's copy of p (this CTA's where C = 1).
+  auto first = [&](auto* p) { return C > 1 ? cluster.map_shared_rank(p, 0) : p; };
 
-  for (int i = tid; i < n; i += kWideThreads) {
-    const size_t gi = (size_t)i * B + w;
-    slo[i] = lo[i];
-    shi[i] = hi[i];
-    sisf[i] = is_friction[i];
-    sfidx[i] = findex[i];
-    sb[i] = b[gi];
-    smu[i] = mu[gi];
-    sz[i] = z0[gi];
-    szp[i] = z0[gi];
-    sy[i] = 1.0f;  // the power iteration's start
+  if constexpr (kPolish) {
+    if (rank == 0) {  // the polish's per-row inputs, every row
+      for (int i = tid; i < N; i += kWideThreads) {
+        const bool in = i < n;
+        const bool fr = in && is_friction[i];
+        const size_t g = (size_t)i * B + w;
+        const float m = fr ? mu[g] : 0.0f;
+        srow[i] = make_float4(in ? b[g] : 0.0f, 0.0f, fr ? -m : in ? lo[i] : 0.0f,
+                              fr ? m : in ? hi[i] : 0.0f);
+        scode[i] = fr ? findex[i] : -1;
+        sz[i] = 0.0f;
+      }
+    }
   }
-#pragma unroll 4
-  for (int idx = tid; idx < n * R; idx += kWideThreads) {
+  // F[row0 + i, j, w] to [i][j]; columns r..R-1 and rows past n are zero.
+#pragma unroll 8
+  for (int idx = tid; idx < nl * R; idx += kWideThreads) {
     const int i = idx / R;
     const int j = idx & (R - 1);
-    Fw[idx] = j < r ? F[(size_t)(i * r + j) * B + w] : 0.0f;
+    const int gi = row0 + i;
+    sF[idx] = (gi < n && j < r) ? F[((size_t)gi * r + j) * B + w] : 0.0f;
   }
-  __syncthreads();
 
-  float u[NJ];
-  // A_ii (kept in sinv for the polish) and its largest value.
+  // This lane's rows: lane 4 m owns row m of each of its warp's groups
+  // warp + kWideWarps k, k < GW.
+  const int m = lane >> 2;
+  const bool owner = (lane & 3) == 0 && m < kGroup;
+  float rz[GW], rzp[GW], ry[GW], rb[GW], rmu[GW], rlo[GW], rhi[GW];
+  int rfi[GW];  // the normal (global row) of a friction row, else -1
+  unsigned valid = 0;
+#pragma unroll
+  for (int k = 0; k < GW; ++k) {
+    const int gl = warp + kWideWarps * k;
+    const int gi = row0 + gl * kGroup + m;
+    const bool in = owner && gl < ngl && gi < n;
+    valid |= in ? 1u << k : 0u;
+    const size_t g = (size_t)(in ? gi : 0) * B + w;
+    rb[k] = in ? b[g] : 0.0f;
+    rmu[k] = in ? mu[g] : 0.0f;
+    rz[k] = in ? z0[g] : 0.0f;
+    rzp[k] = rz[k];
+    rlo[k] = in ? lo[gi] : 0.0f;
+    rhi[k] = in ? hi[gi] : 0.0f;
+    rfi[k] = in && is_friction[gi] ? findex[gi] : -1;
+    ry[k] = in ? 1.0f : 0.0f;  // the power iteration's start
+  }
+  if (C > 1)
+    cluster.sync();  // F staged, every CTA of the cluster running
+  else
+    __syncthreads();
+
+  float u[NJ], up[NJ];
+  int par = 0;
+  float f[kGroup][NJ];
+  auto group_rows = [&](int gl) { return sF + (size_t)gl * kGroup * R; };
+
+  // A_ii (its largest value; its inverse and the Gram terms for the
+  // polish), and u = F^T v for v = 1.
   float dmax = -FLT_MAX;
-  wide_rows<R, true>(Fw, n, u, [&](int i, float d) {
-    sinv[i] = d + cfm;
-    dmax = fmaxf(dmax, d + cfm);
-  });
-  dmax = block_reduce<true>(dmax, red);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) up[j] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < GW; ++k) {
+    const int gl = warp + kWideWarps * k;
+    if (gl < ngl) {
+      load_group(f, group_rows(gl), lane);
+      float p[8];
+#pragma unroll
+      for (int mm = 0; mm < 8; ++mm) {
+        p[mm] = 0.0f;
+        if (mm < kGroup) {
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) p[mm] = fmaf(f[mm][j], f[mm][j], p[mm]);
+        }
+      }
+      halve<8, kLanes / 2>(p, lane);
+      const float a = p[0] + cfm;
+      const int gi = row0 + gl * kGroup + m;
+      if (valid >> k & 1u) {
+        dmax = fmaxf(dmax, a);
+        if constexpr (kPolish)
+          first(srow)[gi].y = a > 1e-12f ? 1.0f / fmaxf(a, 1e-12f) : 0.0f;
+      }
+      if constexpr (kPolish) {
+        float q[16];
+#pragma unroll
+        for (int mm = 1; mm < kGroup; ++mm) {
+#pragma unroll
+          for (int kk = 0; kk < mm; ++kk) {
+            float d = 0.0f;
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) d = fmaf(f[mm][j], f[kk][j], d);
+            q[mm * (mm - 1) / 2 + kk] = d;
+          }
+        }
+        q[15] = 0.0f;
+        halve<16, kLanes / 2>(q, lane);
+        // Lane 2 e holds pair e = (i, k), e = k + i (i - 1) / 2, scaled by
+        // row i's 1 / A_ii (in lane 4 i); an odd group's rows are the
+        // block's rows 6..11.
+        const float inv = a > 1e-12f ? 1.0f / fmaxf(a, 1e-12f) : 0.0f;
+        const int e = min(lane >> 1, 14);
+        const int pi = e < 1 ? 1 : e < 3 ? 2 : e < 6 ? 3 : e < 10 ? 4 : 5;
+        const int pk = e - pi * (pi - 1) / 2;
+        const int gg = rank * ngl + gl;
+        const int odd = (gg & 1) * kGroup;
+        float* const blk = first(sgram) + (gg >> 1) * kGramStride;
+        const float h = q[0] * __shfl_sync(kFull, inv, 4 * pi);
+        if ((lane & 1) == 0 && (lane >> 1) < 15)
+          blk[(pi + odd) * (pi + odd - 1) / 2 + pk + odd] = h;
+        if (odd) {  // with the rows of the group before it, the block's 0..5
+          float fp[kGroup][NJ];
+          load_group(fp, group_rows(gl - 1), lane);
+#pragma unroll
+          for (int ii = 0; ii < kGroup; ++ii) {
+            const float d = group_dot(fp, f[ii], lane);  // F_ii . F_m in lanes 4 m
+            const float hd = d * __shfl_sync(kFull, inv, 4 * ii);
+            if (owner) blk[(ii + kGroup) * (ii + kGroup - 1) / 2 + m] = hd;
+          }
+        }
+      }
+#pragma unroll
+      for (int mm = 0; mm < kGroup; ++mm) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) up[j] += f[mm][j];
+      }
+    }
+  }
+  dmax = wide_reduce<R, true, true>(up, dmax, part, xch, par, C, cluster);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) u[j] = up[j];
 
-  // Power iteration on A with v in sy, then the Rayleigh quotient.
+  // The passes below take every warp through GW groups without a branch,
+  // so that the compiler can overlap one group's shuffles with the next
+  // one's loads: a warp with fewer groups repeats its last real one, whose
+  // rows it does not own there (y = 0, nothing added).
+  auto group_of = [&](int k) { return min(warp + kWideWarps * k, ngl - 1); };
+
+  // Power iteration on A, v in ry, normalised through u: a pass forms
+  // A v, |A v|^2 and F^T A v; the last forms v . A v and F^T z0, the
+  // first Nesterov step's u.
   float L = 0.0f;
   for (int it = 0; it < 7; ++it) {
-    wide_FTy<R>(Fw, sy, part, n, u);
+    const bool power = it < 6;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) up[j] = 0.0f;
     float acc = 0.0f;
-    wide_rows<R, false>(Fw, n, u, [&](int i, float fu) {
-      const float av = fu + cfm * sy[i];
-      if (it < 6) {
-        acc += av * av;
-        sy[i] = av;
-      } else {
-        acc += sy[i] * av;
-      }
-    });
-    acc = block_reduce<false>(acc, red);
-    if (it < 6) {
+#pragma unroll
+    for (int k = 0; k < GW; ++k) {
+      load_group(f, group_rows(group_of(k)), lane);
+      const bool own = valid >> k & 1u;
+      const float av = group_dot(f, u, lane) + cfm * ry[k];
+      acc += own ? (power ? av * av : ry[k] * av) : 0.0f;
+      const float y = power ? (own ? av : 0.0f) : rz[k];
+      ry[k] = power ? y : ry[k];
+      group_accumulate(f, y, up);
+    }
+    acc = wide_reduce<R, true, false>(up, acc, part, xch, par, C, cluster);
+    if (power) {
       const float s = rsqrtf(fmaxf(acc, 1e-24f));
-      for (int i = tid; i < n; i += kWideThreads) sy[i] *= s;
-      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < GW; ++k) ry[k] *= s;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) u[j] = up[j] * s;
     } else {
       L = fmaxf(acc * 1.05f, dmax) + 1e-9f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) u[j] = up[j];
     }
   }
   const float step = 1.0f / L;
 
-  // Nesterov projected-gradient steps on z (sz), z_prev in szp.
+  // Nesterov projected-gradient steps: y_0 = z0, u = F^T y; an iteration
+  // takes z to proj(y - step (A y - b)), then forms the next y and its
+  // F^T y (F^T z after the last, for the polish).
+#pragma unroll
+  for (int k = 0; k < GW; ++k) ry[k] = rz[k];
   for (int it = 0; it < iterations; ++it) {
-    const float beta = ((float)it - 1.0f) / ((float)it + 2.0f);
-    for (int i = tid; i < n; i += kWideThreads) sy[i] = sz[i] + beta * (sz[i] - szp[i]);
-    __syncthreads();
-    wide_FTy<R>(Fw, sy, part, n, u);
-    wide_rows<R, false>(Fw, n, u, [&](int i, float fu) {
-      const float x = sy[i] - step * (fu + cfm * sy[i] - sb[i]);
-      szp[i] = sz[i];
-      sz[i] = sisf[i] ? x : fminf(fmaxf(x, slo[i]), shi[i]);
-    });
-    __syncthreads();
-    for (int i = tid; i < n; i += kWideThreads) {
-      if (sisf[i]) {
-        const float bound = smu[i] * fmaxf(sz[sfidx[i]], 0.0f);
-        sz[i] = fminf(fmaxf(sz[i], -bound), bound);
+    const bool last = it + 1 == iterations;
+    const float beta = ((float)(it + 1) - 1.0f) / ((float)(it + 1) + 2.0f);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) up[j] = 0.0f;
+    if (grouped) {  // a friction row's normal is in its group: one pass
+#pragma unroll
+      for (int k = 0; k < GW; ++k) {
+        const int gl = group_of(k);
+        load_group(f, group_rows(gl), lane);
+        const float y = ry[k];
+        const float x = y - step * (group_dot(f, u, lane) + cfm * y - rb[k]);
+        const bool fr = rfi[k] >= 0;
+        float zc = fr ? x : fminf(fmaxf(x, rlo[k]), rhi[k]);
+        const float zn = __shfl_sync(kFull, zc, fr ? 4 * (rfi[k] - row0 - gl * kGroup) : lane);
+        const float bound = rmu[k] * fmaxf(zn, 0.0f);
+        zc = fr ? fminf(fmaxf(zc, -bound), bound) : zc;
+        rzp[k] = rz[k];
+        rz[k] = zc;
+        ry[k] = zc + beta * (zc - rzp[k]);
+        group_accumulate(f, last ? zc : ry[k], up);
+      }
+    } else {  // every normal projected first, then the friction rows
+#pragma unroll
+      for (int k = 0; k < GW; ++k) {
+        const int gl = group_of(k);
+        load_group(f, group_rows(gl), lane);
+        const float y = ry[k];
+        const float x = y - step * (group_dot(f, u, lane) + cfm * y - rb[k]);
+        rzp[k] = rz[k];
+        rz[k] = rfi[k] >= 0 ? x : fminf(fmaxf(x, rlo[k]), rhi[k]);
+        if (valid >> k & 1u) sz[row0 + gl * kGroup + m] = rz[k];
+      }
+      if (C > 1)
+        cluster.sync();
+      else
+        __syncthreads();
+#pragma unroll
+      for (int k = 0; k < GW; ++k) {
+        if (rfi[k] >= 0) {
+          const int c = rfi[k] / nl;
+          const float zn = C > 1 ? cluster.map_shared_rank(sz, c)[rfi[k]] : sz[rfi[k]];
+          const float bound = rmu[k] * fmaxf(zn, 0.0f);
+          rz[k] = fminf(fmaxf(rz[k], -bound), bound);
+        }
+        ry[k] = rz[k] + beta * (rz[k] - rzp[k]);
+        load_group(f, group_rows(group_of(k)), lane);
+        group_accumulate(f, last ? rz[k] : ry[k], up);
       }
     }
-    __syncthreads();
+    if (!last || kPolish) {
+      wide_reduce<R, true, false>(up, 0.0f, part, xch, par, C, cluster);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) u[j] = up[j];
+    }
   }
 
   if constexpr (kPolish) {
-    for (int i = tid; i < n; i += kWideThreads) {
-      const float d = sinv[i];
-      sinv[i] = d > 1e-12f ? 1.0f / fmaxf(d, 1e-12f) : 0.0f;
-    }
-    wide_FTy<R>(Fw, sz, part, n, u);  // its first barrier orders sinv too
-    if (tid < kLanes) {
-      WideRow<NJ> ra, rb;
-      load_wide_row<R>(ra, 0, lane, Fw, sb, sinv, smu, slo, shi, sisf, sfidx);
-      const int total = pgs_sweeps * n;
-      int i = 0;
-      for (int t = 0; t < total; ++t) {
-        const int i1 = i + 1 == n ? 0 : i + 1;
-        if (t + 1 < total)
-          load_wide_row<R>(rb, i1, lane, Fw, sb, sinv, smu, slo, shi, sisf, sfidx);
-        float p = 0.0f;
 #pragma unroll
-        for (int k = 0; k < NJ; ++k) p += ra.f[k] * u[k];
-        p = warp_sum(p);
-        const float zi = sz[i];
-        const float bound = ra.mu * sz[ra.fi];
-        const float rlo = ra.fr ? -bound : ra.lo;
-        const float rhi = ra.fr ? bound : ra.hi;
-        const float x = fminf(fmaxf(zi + (ra.b - (p + cfm * zi)) * ra.inv, rlo), rhi);
-        const float dz = x - zi;
-#pragma unroll
-        for (int k = 0; k < NJ; ++k) u[k] += ra.f[k] * dz;
-        __syncwarp();
-        if (lane == 0) sz[i] = x;
-        __syncwarp();
-        ra = rb;
-        i = i1;
-      }
+    for (int k = 0; k < GW; ++k)
+      if (valid >> k & 1u) first(sz)[row0 + (warp + kWideWarps * k) * kGroup + m] = rz[k];
+    if (C > 1)
+      cluster.sync();
+    else
+      __syncthreads();
+    if (rank == 0 && warp == 0) {
+      if (layout == 2)
+        wide_polish<R, true>(u, sF, sz, srow, scode, sgram, n, nl, C, pgs_sweeps, cfm,
+                             cluster);
+      else
+        wide_polish<R, false>(u, sF, sz, srow, scode, sgram, n, nl, C, pgs_sweeps, cfm,
+                              cluster);
     }
+    if (C > 1)
+      cluster.sync();  // the other CTAs' F stays until the polish ends
+    else
+      __syncthreads();
+    if (rank == 0)
+      for (int i = tid; i < n; i += kWideThreads) z_out[(size_t)i * B + w] = sz[i];
+  } else {
+#pragma unroll
+    for (int k = 0; k < GW; ++k)
+      if (valid >> k & 1u)
+        z_out[(size_t)(row0 + (warp + kWideWarps * k) * kGroup + m) * B + w] = rz[k];
+    if (C > 1) cluster.sync();  // no CTA leaves while another reads it
   }
+}
 
-  __syncthreads();
-  for (int i = tid; i < n; i += kWideThreads) z_out[(size_t)i * B + w] = sz[i];
+cudaLaunchConfig_t wide_config(int B, int C, size_t smem, cudaStream_t stream,
+                               cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * C));
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 template <int R, bool kPolish>
@@ -728,30 +1071,44 @@ cudaError_t launch_wide(const float* F, const float* b, const float* mu,
                         const float* z0, float* z, const int* isf,
                         const int* fidx, const float* lo, const float* hi,
                         int n, int r, int B, int iterations, int pgs_sweeps,
-                        float cfm, float* work, size_t smem,
+                        float cfm, int C, int nl, int layout, size_t smem,
                         cudaStream_t stream) {
   auto kernel = apgd_wide_kernel<R, kPolish>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<B, kWideThreads, smem, stream>>>(F, b, mu, z0, z, isf, fidx, lo, hi,
-                                            n, r, B, iterations, pgs_sweeps,
-                                            cfm, work);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = wide_config(B, C, smem, stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, kernel, F, b, mu, z0, z, isf, fidx, lo, hi, n, r,
+                           B, iterations, pgs_sweeps, cfm, C, nl, layout);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+// CTAs of the kernel resident on the whole card at once (clusters of C).
 template <int R, bool kPolish>
-int occupancy_wide(size_t smem) {
+int occupancy_wide(int C, size_t smem) {
   auto kernel = apgd_wide_kernel<R, kPolish>;
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess)
     return -1;
-  int blocks = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                    kWideThreads, smem) !=
-      cudaSuccess)
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
     return -1;
-  return blocks;
+  if (C == 1) {
+    int blocks = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      kWideThreads, smem) !=
+        cudaSuccess)
+      return -1;
+    return blocks * sms;
+  }
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = wide_config(sms, C, smem, nullptr, &attr);
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess) return -1;
+  return clusters * C;
 }
 
 template <int R, int ROWS, bool kPolish>
@@ -857,32 +1214,42 @@ int apgd_seed_f32(const float* F, const float* b, const float* mu,
   return (int)cudaErrorInvalidValue;
 }
 
-// Resident blocks (worlds) per SM of the wide tier at rank width
-// `rank_width` with `smem` bytes of shared memory; -1 on an unknown width or
-// a CUDA error.
-int apgd_wide_occupancy(int rank_width, int polish, size_t smem) {
+// CTAs of the wide tier resident on the whole card at rank width
+// `rank_width`, clusters of `cluster` CTAs and `smem` bytes of shared
+// memory a CTA (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the
+// SMs, or cudaOccupancyMaxActiveClusters times the cluster); -1 on an
+// unknown width or a CUDA error.
+int apgd_wide_occupancy(int rank_width, int polish, int cluster, size_t smem) {
 #define WIDE_CASE(R)                                               \
   if (rank_width == R)                                             \
-    return polish ? occupancy_wide<R, true>(smem)                  \
-                  : occupancy_wide<R, false>(smem);
+    return polish ? occupancy_wide<R, true>(cluster, smem)         \
+                  : occupancy_wide<R, false>(cluster, smem);
   WIDE_INSTANCES(WIDE_CASE)
 #undef WIDE_CASE
   return -1;
 }
 
-// The wide tier, one block of 256 threads per world: F (n, r, B),
-// b/mu/z0/z (n, B) as apgd_seed_f32; n <= 1024, r <= rank_width (32, 64 or
-// 128). F is staged into work, B n rank_width floats on the device;
-// smem >= 4 (10 n + 288) bytes. Returns cudaGetLastError() after the
-// launch (0 = launched).
+// The wide tier: F (n, r, B), b/mu/z0/z (n, B) as apgd_seed_f32; n <= 1024,
+// r <= rank_width (32, 64 or 128). A cluster of `cluster` CTAs (1, 2 or
+// 4) of 256 threads per world, each holding rows_per_cta rows (a multiple
+// of 12, at most 288, cluster * rows_per_cta >= n) of F in its shared memory;
+// smem >= 4 wide_smem_floats(rank_width, cluster, rows_per_cta) bytes.
+// layout: 2 only if the friction rows are the assembler's contact triples
+// (rows 3 c + 1 and 3 c + 2 bounded by row 3 c, for a prefix of the rows),
+// 1 only if every friction row's normal lies in its aligned group of 6
+// rows, else 0. Returns cudaGetLastError() after the launch (0 = launched).
 int apgd_wide_f32(const float* F, const float* b, const float* mu,
                   const float* z0, float* z, const int* is_friction,
                   const int* findex, const float* lo, const float* hi, int n,
                   int r, int B, int iterations, int pgs_sweeps, float cfm,
-                  int rank_width, float* work, size_t smem, void* stream) {
-  const size_t words = (size_t)kWideVectors * n + kWideExtra;
-  if (!work || n <= 0 || n > 1024 || B <= 0 || r < 1 || r > rank_width ||
-      iterations < 0 || pgs_sweeps < 0 || smem < sizeof(float) * words)
+                  int rank_width, int cluster, int rows_per_cta, int layout,
+                  size_t smem, void* stream) {
+  if (n <= 0 || n > 1024 || B <= 0 || r < 1 || r > rank_width ||
+      iterations < 0 || pgs_sweeps < 0 ||
+      (cluster != 1 && cluster != 2 && cluster != kMaxCluster) ||
+      rows_per_cta <= 0 || rows_per_cta > kCtaRows || rows_per_cta % kBlock ||
+      cluster * rows_per_cta < n || layout < 0 || layout > 2 ||
+      smem < sizeof(float) * wide_smem_floats(rank_width, cluster, rows_per_cta))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define WIDE_CASE(R)                                                          \
@@ -891,11 +1258,12 @@ int apgd_wide_f32(const float* F, const float* b, const float* mu,
                      ? launch_wide<R, true>(F, b, mu, z0, z, is_friction,     \
                                             findex, lo, hi, n, r, B,          \
                                             iterations, pgs_sweeps, cfm,      \
-                                            work, smem, s)                    \
+                                            cluster, rows_per_cta, layout,    \
+                                            smem, s)                          \
                      : launch_wide<R, false>(F, b, mu, z0, z, is_friction,    \
                                              findex, lo, hi, n, r, B,         \
-                                             iterations, 0, cfm, work, smem,  \
-                                             s));
+                                             iterations, 0, cfm, cluster,     \
+                                             rows_per_cta, layout, smem, s));
   WIDE_INSTANCES(WIDE_CASE)
 #undef WIDE_CASE
   return (int)cudaErrorInvalidValue;

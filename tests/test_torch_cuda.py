@@ -308,10 +308,12 @@ def test_islands_launch_the_seed_once_per_island_and_step():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("sweeps", [0, 16], ids=["K1", "K1b"])
-@pytest.mark.parametrize("boxes,cap", [(10, 96), (20, 192)], ids=["box10", "box20"])
-def test_wide_tier_matches_plain_on_capped_box_lcps(boxes, cap, sweeps):
+@pytest.mark.parametrize("boxes,cap,cluster", [(10, 96, 1), (20, 192, 2)],
+                         ids=["box10", "box20"])
+def test_wide_tier_matches_plain_on_capped_box_lcps(boxes, cap, cluster, sweeps):
     """The 10- and 20-box legs' capped LCPs (n = 288, r = 60; n = 576,
-    r = 120) take the wide tier: kernel against plain at 256 worlds."""
+    r = 120) take the wide tier, F in one CTA's shared memory and in a
+    cluster of two CTAs': kernel against plain at 256 worlds."""
     from nimblephysics_tpu_torch.batched import lcp_cuda
 
     dev = _cuda()
@@ -319,7 +321,9 @@ def test_wide_tier_matches_plain_on_capped_box_lcps(boxes, cap, sweeps):
     q, v, z, u = _box_state(dev, eng, q0, 256, 3)
     (meta, F, b, mu, zw), = eng.lcp_blocks(eng.lcp_problem(q, v, u), z)[0][:1]
     F, b, mu, zw = (x.contiguous() for x in (F, b, mu, zw))
-    assert lcp_cuda.seed_plan(*F.shape[:2], lcp_cuda.smem_limit(dev.index or 0)).tier == "wide"
+    plan = lcp_cuda.seed_plan(*F.shape[:2], lcp_cuda.smem_limit(dev.index or 0))
+    assert plan.tier == "wide" and plan.cluster == cluster
+    assert lcp_cuda.wide_layout(meta) == 2  # contact triples
     got = lcp_cuda.apgd_cuda(meta, F, b, mu, zw, pgs_sweeps=sweeps)
     want = lcp_cuda.apgd_plain(meta, F, 0.0, b, mu, zw)
     if sweeps:
@@ -332,19 +336,33 @@ def test_wide_tier_matches_plain_on_capped_box_lcps(boxes, cap, sweeps):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("sweeps", [0, 16], ids=["K1", "K1b"])
-@pytest.mark.parametrize("n,r", [(300, 20), (63, 128), (1023, 128)],
-                         ids=["rows_300", "rank_128", "capacity"])
-def test_wide_tier_matches_plain_on_random_lcps(n, r, sweeps):
+@pytest.mark.parametrize("n,r,cluster,order",
+                         [(300, 20, 2, "triples"), (63, 128, 1, "triples"),
+                          (1023, 128, 4, "triples"), (288, 60, 1, "swapped"),
+                          (576, 120, 2, "permuted")],
+                         ids=["rows_300", "rank_128", "capacity", "swapped", "permuted"])
+def test_wide_tier_matches_plain_on_random_lcps(n, r, cluster, order, sweeps):
     """Seeded random LCPs of contacts (a normal and two friction rows each)
-    past the narrow tier, up to the wide tier's capacity, 256 worlds."""
+    past the narrow tier, up to the wide tier's capacity, 256 worlds, on
+    clusters of 1, 2 and 4 CTAs; one with each triple's normal second
+    (layout 1: the normal in the group, after a friction row), and one with
+    its rows permuted, so that friction rows find their normals in other
+    groups and in the other CTA (layout 0: the second pass over F)."""
     from nimblephysics_tpu_torch.batched import lcp_cuda
     from nimblephysics_tpu_torch.constraint.lcp import LcpMeta
 
     dev = _cuda()
     rows = np.arange(n)
     isf = rows % 3 > 0
-    meta = LcpMeta(findex=np.where(isf, rows - rows % 3, -1).astype(np.int32),
-                   is_friction=isf, iterations=32, seed_pgs_sweeps=sweeps)
+    fi = np.where(isf, rows - rows % 3, -1)
+    if order != "triples":
+        perm = (np.random.RandomState(n).permutation(n) if order == "permuted"
+                else rows + np.where(rows % 3 == 0, 1, np.where(rows % 3 == 1, -1, 0)))
+        pos = np.argsort(perm)
+        isf, fi = isf[perm], np.where(fi[perm] >= 0, pos[np.maximum(fi[perm], 0)], -1)
+    meta = LcpMeta(findex=fi.astype(np.int32), is_friction=isf, iterations=32,
+                   seed_pgs_sweeps=sweeps)
+    assert lcp_cuda.wide_layout(meta) == {"triples": 2, "swapped": 1, "permuted": 0}[order]
     rng = np.random.RandomState(n + r)
     B = 256
 
@@ -353,7 +371,8 @@ def test_wide_tier_matches_plain_on_random_lcps(n, r, sweeps):
 
     F, b = t(0.5 * rng.randn(n, r, B)), t(rng.randn(n, B))
     mu, z0 = t(np.where(isf[:, None], 0.9, 0.0) * np.ones((1, B))), t(0.1 * np.abs(rng.randn(n, B)))
-    assert lcp_cuda.seed_plan(n, r, lcp_cuda.smem_limit(dev.index or 0)).tier == "wide"
+    plan = lcp_cuda.seed_plan(n, r, lcp_cuda.smem_limit(dev.index or 0))
+    assert plan.tier == "wide" and plan.cluster == cluster
     got = lcp_cuda.apgd_cuda(meta, F, b, mu, z0, pgs_sweeps=sweeps)
     want = lcp_cuda.seed_plain(meta, F, 0.0, b, mu, z0)
     scale = 1.0 + want.abs().amax(dim=0)
