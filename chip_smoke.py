@@ -82,10 +82,22 @@ Phases (any failure exits non-zero and prints no result line):
      tests/test_batched.py jitters them): a half-cheetah step card vs the
      CPU's float32 path, a remat_step VJP in masses and scales card vs
      the CPU's float64 path, and state_step with masses;
+ 20. the single-world timestep (neural/timestep.py, float64 by default):
+     tests/test_golden_values.py's pendulum accelerations and resting-box
+     normal impulse on the card; a 100-step half-cheetah rollout from
+     bench.py's start on the CPU in float64, and a card step from every
+     10th of its states against the CPU's (with a planted fault, the LCP's
+     seed alone, that must miss the impulse limit); one step of box_drop
+     and of the 3-box stack; the card's own float64 and float32 rollouts
+     (ms a step, CUDA launches a step; float32 held to the CPU's float32
+     path and to the float64 rollout's deepest contact); a 4-step VJP in
+     (q, v, control, masses), card vs CPU; and no launch of the seed
+     kernel (the single-world path runs none);
   then a JSON line per kernel and, last, {"ok": true, "device": ...}.
 
-`python3 chip_smoke.py --only 9,18,19` runs phases 1-2 and the listed
-ones of 9, 18 and 19, and prints no result line (for iterating on them).
+`python3 chip_smoke.py --only 9,18,19,20` runs phases 1-2 and the listed
+ones of 9, 18, 19 and 20, and prints no result line (for iterating on
+them).
 
 Matmuls run in full float32: TF32 is switched off for matmuls and cuDNN,
 since F = J L^-T and the pinned solves would otherwise keep only ~3
@@ -99,6 +111,7 @@ the profiler (profile_torch_step.py) imports them from here.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import re
 import subprocess
@@ -869,7 +882,7 @@ def phase10(dev):
         extra = ""
         if eng.contact_cap is not None:
             d = eng.lcp_problem(qf, vf, u).contact_depths
-            live = eng._contact_valid(d).sum(dim=0)
+            live = eng.assembler.contact_valid(d).sum(dim=0)
             extra = (f"; worlds with more penetrating slots than the cap "
                      f"({eng.contact_cap}): {int((live > eng.contact_cap).sum())}/{BATCH}, "
                      f"most {int(live.max())}")
@@ -1098,7 +1111,7 @@ def _pendulum(links):
 def _free_box(size=0.2):
     """tests/worlds.py's free_box: a free unit-mass box of side `size`."""
     from nimblephysics_tpu_torch.dynamics import FREE, ShapeSpec, Skeleton
-    from nimblephysics_tpu_torch.models.builtin import inertia_box
+    from nimblephysics_tpu_torch.math.spatial import inertia_box
 
     sk = Skeleton("box")
     sk.add_joint_and_body(FREE, name="box", mass=1.0, inertia=inertia_box(1.0, np.full(3, size)),
@@ -1172,7 +1185,7 @@ def constraint_drift(eng, q):
 
     R, p, *_ = fk(eng.fw, q)
     gap = rot = q.new_zeros(q.shape[-1])
-    for k in eng._c.dyn:
+    for k in eng.assembler.row_consts(q.dtype, q.device).dyn:
         pa = bl.mv(R[k.body_a], k.offset_a) + p[k.body_a]
         pb = bl.mv(R[k.body_b], k.offset_b) + p[k.body_b]
         gap = torch.maximum(gap, (pa - pb).norm(dim=0))
@@ -1737,7 +1750,7 @@ def phase18(dev):
         dz, vmax = float(dz_w.max()), float(v_w.max())
         heights = qf[5::6] - torch.as_tensor(q0[5::6], dtype=qf.dtype, device=dev)[:, None]
         d = eng.lcp_problem(qf, vf, u).contact_depths
-        live = eng._contact_valid(d).sum(dim=0)
+        live = eng.assembler.contact_valid(d).sum(dim=0)
         print(f"phase 18 ({label}): {STEPS} steps x {worlds} worlds: "
               f"{dt_s / STEPS * 1e3:.3f} ms/step, {worlds * STEPS / dt_s:.1f} env-steps/s; "
               f"K1b launches {launches}; CUDA kernel launches per step {per_step}; peak "
@@ -1912,6 +1925,277 @@ def phase19(dev):
     check(moved > 0, "state_step ignored its masses")
 
 
+# Phase 20: the single-world step (neural/timestep.py), float64 on the card
+# against float64 on the CPU from the same state: the same algorithm and
+# dtype, only the order of the reductions differs. Set before any reading:
+# q to 1e-10, v and the impulses to 1e-8 of 1 + max|.|. A redundant
+# contact set (a box's four corners on the ground) leaves z unique only up
+# to F^T's null space; the pinned solve returns z in the row space of its
+# clamping rows, so that part holds to the same limit.
+SW_STEPS = 100
+# The states compared: every SW_EVERY-th, from the fifth (the feet land
+# near step 60; on the two-row contacts before step 84 the seed alone is
+# often exact, so only states with more live rows can tell it).
+SW_EVERY = 10
+SW_CONTROL = 3.0
+SW_DQ = 1e-10
+SW_DV = 1e-8
+SW_DZ = 1e-8
+# The 4-step VJP in (q, v, control, masses): |dg| / |g|, card vs CPU.
+SW_VJP = 1e-8
+SW_VJP_STEPS = 4
+# float32 on the card: no body deeper into the ground than the CPU float64
+# rollout's deepest contact plus this.
+SW_DEPTH_SLACK = 1e-3
+
+
+def sw_world(*skels, gravity=(0.0, 0.0, -9.81), dt=1e-3):
+    from nimblephysics_tpu_torch.simulation import World
+
+    w = World(time_step=dt, gravity=gravity)
+    for s in skels:
+        w.add_skeleton(s)
+    return w
+
+
+def sw_goldens(dev):
+    """tests/test_golden_values.py's pendulum and resting-box goldens on
+    the card in float64, at that file's tolerances."""
+    from nimblephysics_tpu_torch.neural import Engine
+
+    f64 = dict(dtype=torch.float64, device=dev)
+    g, dt = 9.81, 1e-3
+    eng = Engine(sw_world(_pendulum(1)), device=dev)
+    z1 = torch.zeros(1, **f64)
+    hang = float(eng.step(z1, z1, z1).v[0])
+    horiz = float(eng.step(torch.tensor([np.pi / 2], **f64), z1, z1).v[0])
+    want = dt * -(g * 0.5) / (1.0 / 3.0)
+    box = Engine(sw_world(_free_box(), _ground()), device=dev)
+    q = torch.zeros(6, **f64)
+    q[5] = 0.1 - 1e-5
+    r = box.step(q, torch.zeros(6, **f64), torch.zeros(6, **f64))
+    C = r.contact_depths.shape[0]
+    normal = float(r.impulses[: 3 * C][0::3].sum())
+    print(f"phase 20 (a): pendulum hanging v' {hang:.3e} (bound 1e-12), horizontal v' "
+          f"{horiz:.15e} vs {want:.15e} (rel {abs(horiz / want - 1):.2e}, bound 1e-10); "
+          f"resting box normal impulse {normal:.15e} vs m g dt {g * dt:.15e} (rel "
+          f"{abs(normal / (g * dt) - 1):.2e}, bound 1e-8)")
+    check(abs(hang) <= 1e-12, "hanging pendulum accelerates on the card")
+    check(abs(horiz / want - 1) <= 1e-10, "horizontal pendulum acceleration on the card")
+    check(abs(normal / (g * dt) - 1) <= 1e-8, "resting box normal impulse on the card")
+
+
+def sw_compare(card, cpu):
+    """(dq, dv, dz), each over 1 + max|.| of the CPU step."""
+    def rel(a, b):
+        b = b.detach().cpu().double()
+        return float((a.detach().cpu().double() - b).abs().max() / (1.0 + b.abs().max()))
+
+    return rel(card.q, cpu.q), rel(card.v, cpu.v), rel(card.impulses, cpu.impulses)
+
+
+def sw_on(dev, xs, dtype=torch.float64):
+    return [x.detach().to(device=dev, dtype=dtype) for x in xs]
+
+
+def sw_seed_only(meta, F, b, mu, z_warm, cfm=0.0, fallback_cfm=None):
+    """The planted fault: the LCP's seed alone (APGD and its PGS sweeps),
+    with no refinement rounds and no pinned solve."""
+    import dataclasses as dc
+
+    from nimblephysics_tpu_torch.constraint import lcp
+
+    z = lcp._apgd(meta, F, cfm, b, mu, z_warm)
+    return lcp._pgs(dc.replace(meta, iterations=meta.seed_pgs_sweeps), F, cfm, b, mu, z)
+
+
+def sw_vjp(eng, start, u, masses, weights):
+    """The gradient of sum_k w_k . [q_k; v_k] over SW_VJP_STEPS steps from
+    `start` in (q, v, control, masses), concatenated."""
+    q, v, z = (x.clone() for x in start)
+    q.requires_grad_()
+    v.requires_grad_()
+    u = u.clone().requires_grad_()
+    m = masses.clone().requires_grad_()
+    q0, v0 = q, v
+    loss = 0.0
+    for w in weights:
+        r = eng.step(q, v, u, z_warm=z, body_params={"masses": m})
+        q, v, z = r.q, r.v, r.impulses
+        loss = loss + torch.dot(w, torch.cat([q, v]))
+    return torch.cat([g.reshape(-1) for g in torch.autograd.grad(loss, (q0, v0, u, m))])
+
+
+def sw_cpu_rollout():
+    """The half-cheetah from bench.py's start under a seeded control,
+    drawn anew each step (SW_CONTROL randn on the leg joints: the legs
+    push, so that several rows are live at once), with warm-started
+    impulses, SW_STEPS steps on the CPU in float64: (world, controls, the
+    CPU engine, the state (q, v, z_warm) before each step, the deepest
+    contact, CPU ms a step, and the random state that drew the controls)."""
+    from nimblephysics_tpu_torch.models import half_cheetah
+    from nimblephysics_tpu_torch.neural import Engine
+
+    world, q0, v0 = half_cheetah()
+    rng = np.random.RandomState(SEED + 20)
+    q = q0.copy()
+    q[1] += rng.uniform(-0.02, 0.02)
+    cpu = Engine(world, device="cpu")
+    us = [world.action_to_forces(torch.as_tensor(SW_CONTROL * rng.randn(world.action_size)))
+          for _ in range(SW_STEPS)]
+    state = (torch.as_tensor(q), torch.as_tensor(v0), torch.zeros(cpu.num_constraint_rows,
+                                                                   dtype=torch.float64))
+    states, deepest = [], 0.0
+    t0 = time.perf_counter()
+    for u in us:
+        states.append(state)
+        r = cpu.step(*state[:2], u, z_warm=state[2])
+        deepest = max(deepest, float(r.contact_depths.max()))
+        state = (r.q, r.v, r.impulses)
+    cpu_ms = (time.perf_counter() - t0) / SW_STEPS * 1e3
+    check(all(bool(torch.isfinite(x).all()) for x in state), "CPU rollout not finite")
+    return world, us, cpu, states, deepest, cpu_ms, rng
+
+
+def phase20(dev, smi):
+    """The single-world timestep on the card (module docstring)."""
+    from unittest import mock
+
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+    from nimblephysics_tpu_torch.models import box_drop, box_stack
+    from nimblephysics_tpu_torch.neural import Engine
+
+    # The module (the package exports its function of the same name).
+    ts_mod = importlib.import_module("nimblephysics_tpu_torch.neural.timestep")
+
+    launches0 = lcp_cuda.apgd_seed.launches
+    sw_goldens(dev)
+
+    # (b) The half-cheetah's CPU float64 rollout (sw_cpu_rollout), and one
+    # card step from every SW_EVERY-th of its states.
+    world, us, cpu, states, deepest, cpu_ms, rng = sw_cpu_rollout()
+    card = Engine(world, device=dev)
+    worst = [0.0] * 3
+    fault, in_contact = 0.0, 0
+    for k in range(SW_EVERY // 2, SW_STEPS, SW_EVERY):
+        s, u = states[k], us[k]
+        want = cpu.step(*s[:2], u, z_warm=s[2])
+        got = card.step(*sw_on(dev, s[:2]), u.to(dev), z_warm=s[2].to(dev))
+        worst = [max(a, b) for a, b in zip(worst, sw_compare(got, want))]
+        if float(want.impulses.abs().max()) > 0:
+            in_contact += 1
+            with mock.patch.object(ts_mod, "boxed_lcp", sw_seed_only):
+                seed = cpu.step(*s[:2], u, z_warm=s[2])
+            fault = max(fault, sw_compare(got, seed)[2])
+    print(f"phase 20 (b): half-cheetah, {SW_STEPS} CPU float64 steps (deepest contact "
+          f"{deepest:.4e} m), {SW_STEPS // SW_EVERY} card steps from its states "
+          f"({in_contact} with impulses): max |dq|/(1+|q|) {worst[0]:.3e} (bound {SW_DQ:g}), "
+          f"|dv|/(1+|v|) {worst[1]:.3e} (bound {SW_DV:g}), |dz|/(1+|z|) {worst[2]:.3e} "
+          f"(bound {SW_DZ:g}); planted fault (the seed alone) {fault:.3e} (must exceed "
+          f"{SW_DZ:g})")
+    check(in_contact >= 2, "too few compared states in contact")
+    check(worst[0] <= SW_DQ and worst[1] <= SW_DV, "card step q/v disagree with the CPU")
+    check(worst[2] <= SW_DZ, "card impulses disagree with the CPU")
+
+    # The JAX models' box_drop (landing flat) and 3-box stack, one step.
+    for label, (w, qb, vb) in (("box_drop", box_drop()), ("box_stack(3)", box_stack(3))):
+        qb = np.asarray(qb, dtype=np.float64).copy()
+        vb = np.asarray(vb, dtype=np.float64).copy()
+        if label == "box_drop":
+            qb[5], vb[5] = 0.1 - 1e-3, -0.8
+        e_cpu, e_card = Engine(w, device="cpu"), Engine(w, device=dev)
+        s = [torch.as_tensor(x) for x in (qb, vb, np.zeros(w.num_dofs))]
+        want = e_cpu.step(*s)
+        got = e_card.step(*sw_on(dev, s))
+        d = sw_compare(got, want)
+        with mock.patch.object(ts_mod, "boxed_lcp", sw_seed_only):
+            d_seed = sw_compare(got, e_cpu.step(*s))[2]
+        fault = max(fault, d_seed)
+        print(f"phase 20 (b): {label}: |dq| {d[0]:.3e}, |dv| {d[1]:.3e}, |dz| {d[2]:.3e}; "
+              f"{int((want.contact_depths > 0).sum())} contacts, max z "
+              f"{float(want.impulses.abs().max()):.4e}; the seed alone {d_seed:.3e}")
+        check(float(want.impulses.abs().max()) > 0, f"{label}: no impulse")
+        check(d[0] <= SW_DQ and d[1] <= SW_DV and d[2] <= SW_DZ,
+              f"{label}: the card step disagrees with the CPU")
+    # The planted fault must miss the impulse limit somewhere: warm-started
+    # on the cheetah's steady contacts the seed can meet it, so the
+    # boxes' cold-started impacts count too.
+    print(f"phase 20 (e): the seed alone, largest |dz|/(1+|z|) {fault:.3e} "
+          f"(must exceed {SW_DZ:g})")
+    check(fault > SW_DZ, "the impulse limit cannot tell the seed alone")
+
+    # The card's own rollouts, float64 and float32, timed; CUDA launches a
+    # step.
+    f32 = Engine(world, device=dev, dtype=torch.float32)
+    times, finals = {}, {}
+    for label, eng, dtype in (("float64", card, torch.float64), ("float32", f32, torch.float32)):
+        s = sw_on(dev, states[0], dtype)
+        ut = sw_on(dev, us, dtype)
+        for _ in range(3):  # warm-up
+            eng.step(s[0], s[1], ut[0], z_warm=s[2])
+        torch.cuda.synchronize()
+        seen, deep = [], 0.0
+        t0 = time.perf_counter()
+        for k in range(SW_STEPS):
+            if k % SW_EVERY == SW_EVERY // 2:
+                seen.append((k, s))
+            r = eng.step(s[0], s[1], ut[k], z_warm=s[2])
+            s = (r.q, r.v, r.impulses)
+            if dtype == torch.float32:
+                deep = torch.maximum(torch.as_tensor(deep, device=dev), r.contact_depths.max())
+        torch.cuda.synchronize()
+        times[label] = (time.perf_counter() - t0) / SW_STEPS * 1e3
+        finals[label] = (s, seen, float(deep))
+    launches = count_launches(lambda: card.step(*sw_on(dev, states[-1][:2]), us[-1].to(dev),
+                                                z_warm=states[-1][2].to(dev)))
+
+    # (d) float32 on the card: finite, no deeper than the float64 rollout
+    # plus SW_DEPTH_SLACK, and each of its SW_EVERY-th states stepped on the
+    # CPU's float32 path at phase 5's limits.
+    (s32, seen32, deep32) = finals["float32"]
+    check(all(bool(torch.isfinite(x).all()) for x in s32), "float32 card rollout not finite")
+    cpu32 = Engine(world, device="cpu", dtype=torch.float32)
+    dz32 = dv32 = 0.0
+    for k, s in seen32:
+        got = f32.step(s[0], s[1], us[k].to(device=dev, dtype=torch.float32), z_warm=s[2])
+        want = cpu32.step(*(x.cpu() for x in s[:2]), us[k].float(), z_warm=s[2].cpu())
+        dz32 = max(dz32, float((got.impulses.cpu() - want.impulses).abs().max()
+                               / (1.0 + want.impulses.abs().max())))
+        dv32 = max(dv32, float((got.v.cpu() - want.v).abs().max()
+                               / (1.0 + want.v.abs().max())))
+    print(f"phase 20 (d): float32 on the card: deepest contact {deep32:.4e} m (bound "
+          f"{deepest + SW_DEPTH_SLACK:.4e}); card vs CPU float32 from {len(seen32)} of its "
+          f"states: max|dz|/(1+max|z|) {dz32:.3e} (bound {DZ_SAME:g}), max|dv|/(1+max|v|) "
+          f"{dv32:.3e} (bound {DV_SAME:g})")
+    check(deep32 <= deepest + SW_DEPTH_SLACK, "float32 card rollout sinks into the ground")
+    check(dz32 <= DZ_SAME and dv32 <= DV_SAME, "float32 card step disagrees with the CPU")
+
+    # (c) The VJP of a SW_VJP_STEPS-step loss from a state in contact.
+    k_start = max(k for k in range(SW_STEPS) if float(states[k][2].abs().max()) > 0)
+    wts = [torch.as_tensor(rng.randn(2 * world.num_dofs)) for _ in range(SW_VJP_STEPS)]
+    masses = torch.as_tensor(1.0 + 0.1 * rng.rand(world.num_bodies))
+    g_cpu = sw_vjp(cpu, states[k_start], us[k_start], masses, wts)
+    args = (sw_on(dev, states[k_start]), us[k_start].to(dev), masses.to(dev),
+            [w.to(dev) for w in wts])
+    sw_vjp(card, *args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_card = sw_vjp(card, *args)
+    torch.cuda.synchronize()
+    vjp_ms = (time.perf_counter() - t0) * 1e3
+    rel = float((g_card.cpu() - g_cpu).norm() / g_cpu.norm())
+    print(f"phase 20 (c): {SW_VJP_STEPS}-step VJP in (q, v, control, masses) from CPU step "
+          f"{k_start} (in contact): |dg|/|g| {rel:.3e} (bound {SW_VJP:g}), |g| "
+          f"{float(g_cpu.norm()):.4e}")
+    check(rel <= SW_VJP, "card VJP disagrees with the CPU")
+
+    # No kernel of the batched path runs on the single-world one.
+    check(lcp_cuda.apgd_seed.launches == launches0, "the single-world step launched the seed kernel")
+    print(f"phase 20 (f): {smi}: single-world half-cheetah step {times['float64']:.3f} ms "
+          f"(float64), {times['float32']:.3f} ms (float32), CPU float64 {cpu_ms:.3f} ms; "
+          f"{launches} CUDA launches a step; {SW_VJP_STEPS}-step VJP {vjp_ms:.3f} ms")
+
+
 def wide_kernel_entries(k9, runs):
     """The kernels line's entries for K1b on the 10- and 20-box capped
     LCPs: launches from the phase-18 rollouts, phase 9's numbers."""
@@ -1938,7 +2222,7 @@ def main() -> int:
     only = set()
     if len(sys.argv) > 2 and sys.argv[1] == "--only":
         only = {int(x) for x in sys.argv[2].split(",")}
-        check(only <= {9, 18, 19}, "--only takes phases 9, 18 and 19")
+        check(only <= {9, 18, 19, 20}, "--only takes phases 9, 18, 19 and 20")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1978,6 +2262,8 @@ def main() -> int:
         runs = phase18(dev) if 18 in only else None
         if 19 in only:
             phase19(dev)
+        if 20 in only:
+            phase20(dev, smi)
         if k9 and runs:
             print(json.dumps({"kernels": wide_kernel_entries(k9, runs)}))
         print(f"chip_smoke: phases 1, 2 and {sorted(only)} passed; no result line "
@@ -2115,6 +2401,9 @@ def main() -> int:
     # 18-19. The 10- and 20-box legs; body parameters.
     wide = phase18(dev)
     phase19(dev)
+
+    # 20. The single-world timestep.
+    phase20(dev, smi)
 
     kernel = {
         "name": "apgd_seed",

@@ -138,9 +138,9 @@ class FlatWorld:
             for j in skel.joints:
                 if j.joint_type not in SUPPORTED_TYPES:
                     raise NotImplementedError(
-                        f"batched engine: joint type {j.joint_type!r} (S from a "
-                        "jvp of a spline-driven Q) comes with the single-world "
-                        "reference path (ROADMAP queue 1 item 10)"
+                        f"joint type {j.joint_type!r}: the spline-driven joints "
+                        "(S from a jvp of a spline-driven Q) come with "
+                        "math/splines.py (ROADMAP queue 1 item 10c)"
                     )
                 T_ci = np.linalg.inv(j.T_cj)
                 rot, trans = _factors(j)
@@ -561,15 +561,19 @@ def _dad_transmit(R, p, F):
     return torch.cat([bl.mv(R, m) + bl.cross(p, Rf), Rf])
 
 
-def bias_forces(fw: FlatWorld, q, v, rels, S_list, G_list=None, scales=None):
+def bias_forces(fw: FlatWorld, q, v, rels, S_list, G_list=None, scales=None,
+                ddq=None, f_ext=None, base_acc=None):
     """C(q, v) including the world's gravity by batched RNEA at zero
-    acceleration.
+    acceleration; with ddq, the inverse dynamics M ddq + C.
 
     The S-dot term is zero for constant-S joints, _chain_S_dot_dq for
     chain joints and _exp_S_dot_dq for ball and free ones. Body-frame
-    spatial recursion as in dynamics/skeleton.bias_forces of the JAX
+    spatial recursion as in dynamics/skeleton.inverse_dynamics of the JAX
     package. G_list: optional per-body (6, 6, B) spatial inertias (body
-    parameters), else the plan's; scales: fk's, for the S-dot terms.
+    parameters), else the plan's; scales: fk's, for the S-dot terms;
+    ddq (nv, B): joint accelerations; f_ext (nb, 6, B): external wrenches
+    in each body's frame; base_acc (6, B or 1): the base acceleration
+    [0; -gravity] in place of the world's.
     """
     c = fw.tensors(q.dtype, q.device)
     B = q.shape[-1]
@@ -585,7 +589,7 @@ def bias_forces(fw: FlatWorld, q, v, rels, S_list, G_list=None, scales=None):
         Rr, pr = rels[bi]
         if jp.parent < 0:
             Vp = q.new_zeros(6, B)
-            Ap = c.base_acc.expand(6, B)
+            Ap = (c.base_acc if base_acc is None else base_acc).expand(6, B)
         else:
             Vp, Ap = V[jp.parent], A[jp.parent]
         Vi = _adinv_twist(Rr, pr, Vp)
@@ -597,6 +601,8 @@ def bias_forces(fw: FlatWorld, q, v, rels, S_list, G_list=None, scales=None):
             Ai = Ai + bl.ad_apply(Vi, sj)
             if bi in sdot:
                 Ai = Ai + sdot[bi]
+            if ddq is not None:
+                Ai = Ai + bl.mv(S_list[bi], ddq[jp.q_index : jp.q_index + jp.num_dofs])
         V[bi], A[bi] = Vi, Ai
     F: List = [None] * fw.nb
     tau = q.new_zeros(fw.nv, B)
@@ -604,6 +610,8 @@ def bias_forces(fw: FlatWorld, q, v, rels, S_list, G_list=None, scales=None):
         jp = fw.joints[bi]
         Gb = c.G[bi] if G_list is None else G_list[bi]
         Fi = bl.mv(Gb, A[bi]) - bl.dad_apply(V[bi], bl.mv(Gb, V[bi]))
+        if f_ext is not None:
+            Fi = Fi - f_ext[bi]
         if F[bi] is not None:
             Fi = Fi + F[bi]
         if jp.parent >= 0:

@@ -482,14 +482,7 @@ class BatchedCollider:
     def __init__(self, collider: Collider):
         self.collider = collider
         self.slots = collider.slots
-        n_all = sum(s.n_slots for s in self.slots)
-        if collider.num_contacts != n_all:
-            raise NotImplementedError(
-                "World.max_contacts below the slot count: the JAX batched "
-                "collider caps num_contacts but returns every slot; the port "
-                "waits for a reference test that pins its meaning (ROADMAP "
-                "queue 3, known differences)"
-            )
+        collider.check_uncapped()
         ba, bb, mu, e = [], [], [], []
         for slot in self.slots:
             k = slot.n_slots

@@ -39,7 +39,6 @@ import torch
 from nimblephysics_tpu_torch.batched import linalg as bl
 from nimblephysics_tpu_torch.batched.articulated import (
     FlatWorld,
-    _pad,
     bias_forces,
     fk,
     integrate_positions,
@@ -115,29 +114,12 @@ class StepSaved(NamedTuple):
     rows_idx: Optional[torch.Tensor] = None  # (3 cap, B) capped contact rows
 
 
-def _tangent_basis_b(n):
-    """ODE tangent basis (parity: assembly.tangent_basis): n (..., 3, K)
-    unit normals -> (t1, t2), each (..., 3, K)."""
-    z = torch.zeros_like(n)
-    z[..., 2, :] = 1.0
-    x = torch.zeros_like(n)
-    x[..., 0, :] = 1.0
-    t_z = torch.cross(z, n, dim=-2)
-    t_x = torch.cross(x, n, dim=-2)
-    use_x = torch.sum(t_z * t_z, dim=-2, keepdim=True) < 1e-12
-    t_raw = torch.where(use_x, t_x, t_z)
-    norm2 = torch.sum(t_raw * t_raw, dim=-2, keepdim=True)
-    t1 = t_raw / torch.sqrt(torch.clamp(norm2, min=1e-18))
-    t2 = torch.cross(n, t1, dim=-2)
-    return t1, t2
-
-
 def _resolve_device(device) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "BatchedEngine runs on the GPU by default and no CUDA device "
+                "the engine runs on the GPU by default and no CUDA device "
                 "is available; pass device='cpu' to run on the CPU"
             )
         if dev.index is None:
@@ -202,41 +184,6 @@ class BatchedEngine:
                 np.asarray(x), dtype=self.dtype, device=self.device
             )
 
-        nv = self.world.num_dofs
-        anc = self.fw.anc
-        # Motor rows: J (M, nv) with 1 at the dof (and -multiplier at a
-        # mimic's leader); a servo's target velocity is its control, read
-        # from control padded with a zero row (index nv) for the others.
-        motors = self.assembler.motor_rows
-        Jm = np.zeros((len(motors), nv))
-        target = np.full(len(motors), nv, dtype=np.int64)
-        for i, mr in enumerate(motors):
-            Jm[i, mr["dof"]] = 1.0
-            if mr["kind"] == "mimic" and mr["mimic_dof"] is not None:
-                Jm[i, mr["mimic_dof"]] = -mr["mimic_multiplier"]
-            if mr["kind"] == "servo":
-                target[i] = mr["dof"]
-        # Ball and weld constraints: the bodies' dof masks (1, nv, 1), the
-        # anchor offsets (3, 1) and a weld's relative rotation (3, 3, 1).
-        dyn = [
-            SimpleNamespace(
-                kind=con["kind"], body_a=con["body_a"], body_b=con["body_b"],
-                mask_a=t(anc[con["body_a"]])[None, :, None],
-                mask_b=t(anc[con["body_b"]])[None, :, None],
-                offset_a=t(con["offset_a"])[:, None],
-                offset_b=t(con["offset_b"])[:, None],
-                rel_rot=(t(con["rel_rot"])[..., None] if con["kind"] == "weld"
-                         else None),
-            )
-            for con in self.world.dynamic_constraints
-        ]
-
-        C = self.bcollider.num_contacts
-        dmask = np.stack(
-            [anc[self.bcollider.body_a[c]] - anc[self.bcollider.body_b[c]]
-             for c in range(C)]
-        ) if C else np.zeros((0, self.world.num_dofs))
-        rows = self.assembler.limit_rows
         specs = self.fw.body_specs
         return SimpleNamespace(
             # The bodies' nominal mass (NB, 1), COM (NB, 3, 1) and inertia
@@ -246,22 +193,10 @@ class BatchedEngine:
             body_inertia=t(np.stack([b.inertia for b in specs]) if specs
                            else np.zeros((0, 3, 3)))[..., None],
             **{k: t(v)[:, None] for k, v in per_dof.items()},
-            dmask=t(dmask)[:, None, :, None],  # (C, 1, nv, 1)
-            restitution=t(self.bcollider.restitution)[:, None],
-            mu=t(self.bcollider.mu)[:, None],
-            lim_dofs=torch.as_tensor(
-                np.array([r.dof for r in rows], dtype=np.int64),
-                device=self.device,
-            ),
-            lim_signs=t([r.sign for r in rows])[:, None],
-            lim_values=t([r.limit for r in rows])[:, None],
             action_idx=torch.as_tensor(
                 np.asarray(self.world.action_indices, dtype=np.int64),
                 device=self.device,
             ),
-            motor_J=t(Jm)[:, :, None],  # (M, nv, 1)
-            motor_target=torch.as_tensor(target, device=self.device),
-            dyn=dyn,
         )
 
     def _build_cap_meta(self, cap: int) -> LcpMeta:
@@ -376,111 +311,11 @@ class BatchedEngine:
 
     # ------------------------------------------------------------------
 
-    def _contact_block(self, v_pre, cpoint, cnormal, cdepth, W):
-        """Contact rows: J (3C, nv, B), valid/b/mu (3C, B)."""
-        cfg = self.world.solver
-        dt = self.world.time_step
-        C = self.bcollider.num_contacts
-        B = v_pre.shape[-1]
-        c = self._c
-        t1, t2 = _tangent_basis_b(cnormal)  # (C, 3, B)
-        D = torch.stack([cnormal, t1, t2], dim=1)  # (C, 3 dirs, 3, B)
-        # Row spatial vector about the world origin: [p x d; d].
-        g = torch.cat(
-            [torch.cross(cpoint[:, None].expand_as(D), D, dim=2), D], dim=2
-        )  # (C, 3, 6, B)
-        # Contacts between bodies that no dof moves get dmask = 0, so
-        # identically-zero rows, in the same row order.
-        Jc = torch.einsum("ckib,idb->ckdb", g, W) * c.dmask
-        Jc = Jc.reshape(3 * C, -1, B)
-
-        valid_c = self._contact_valid(cdepth)
-        b0 = -torch.sum(Jc * v_pre[None, :, :], dim=1)  # (3C, B)
-        b_n = b0[0::3]
-        rest = c.restitution
-        rest_vel = torch.where(
-            rest > cfg.restitution_threshold, b_n * rest, torch.zeros_like(b_n)
-        )
-        bounce = torch.where(
-            rest_vel > cfg.bouncing_velocity_threshold,
-            torch.clamp(rest_vel, max=cfg.max_bouncing_velocity),
-            torch.zeros_like(rest_vel),
-        )
-        if cfg.penetration_correction_enabled:
-            pen = torch.clamp(
-                (cdepth - cfg.error_allowance)
-                * cfg.error_reduction_parameter / dt,
-                0.0,
-                cfg.max_error_reduction_velocity,
-            )
-            bounce = torch.where(bounce > 0.0, bounce, pen)
-        b_c = b0.reshape(C, 3, B)
-        b_c = torch.cat([b_c[:, :1] + bounce[:, None], b_c[:, 1:]], 1)
-        mu_eff = torch.where(
-            c.mu > cfg.friction_threshold, c.mu, torch.zeros_like(c.mu)
-        ).expand(C, B)
-        mu_c = torch.stack([torch.zeros_like(mu_eff), mu_eff, mu_eff], 1)
-        valid_rows = valid_c.repeat_interleave(3, dim=0)
-        return Jc, valid_rows, b_c.reshape(3 * C, B), mu_c.reshape(3 * C, B)
-
-    def _dynamic_block(self, k, v_pre, W, R_wb, p_wb):
-        """The rows of one ball (3: the anchor points) or weld (6: the
-        orientation, then the anchor points) constraint, with ERP feedback
-        of the position error, and the rotation error log(R_a rel R_b^T)
-        for a weld (the JAX package's batched rows)."""
-        cfg = self.world.solver
-        gamma = cfg.error_reduction_parameter / self.world.time_step
-        cap = cfg.joint_max_error_reduction_velocity
-        A, Bb = k.body_a, k.body_b
-        pA = bl.mv(R_wb[A], k.offset_a) + p_wb[A]
-        pB = bl.mv(R_wb[Bb], k.offset_b) + p_wb[Bb]
-        WA, WB = W * k.mask_a, W * k.mask_b
-        J = (WA[3:] - bl.cross_cols(pA, WA[:3])) - (WB[3:] - bl.cross_cols(pB, WB[:3]))
-        err = pA - pB
-        if k.kind == "weld":
-            R_e = bl.mm(bl.mm(R_wb[A], k.rel_rot), R_wb[Bb].transpose(0, 1))
-            J = torch.cat([(WA - WB)[:3], J])
-            err = torch.cat([bl.log_so3(R_e), err])
-        b = -torch.sum(J * v_pre[None, :, :], dim=1) - torch.clamp(gamma * err, -cap, cap)
-        return J, torch.ones_like(b, dtype=torch.bool), b, torch.zeros_like(b)
-
     def _assemble(self, q, v_pre, cpoint, cnormal, cdepth, W, R_wb, p_wb, control):
         """Contact, limit, motor and ball/weld rows: J (n, nv, B), b, mu,
-        valid (n, B)."""
-        cfg = self.world.solver
-        dt = self.world.time_step
-        nv = self.world.num_dofs
-        B = q.shape[-1]
-        c = self._c
-        blocks = []
-        if self.bcollider.num_contacts > 0:
-            blocks.append(self._contact_block(v_pre, cpoint, cnormal, cdepth, W))
-        L = len(self.assembler.limit_rows)
-        if L > 0:
-            Jl = torch.zeros(L, nv, B, dtype=q.dtype, device=q.device)
-            Jl[torch.arange(L, device=q.device), c.lim_dofs] = c.lim_signs
-            depth_l = c.lim_signs * (c.lim_values - q[c.lim_dofs])
-            valid_l = depth_l > -cfg.joint_limit_margin
-            b_l = -(c.lim_signs * v_pre[c.lim_dofs]) + torch.clamp(
-                depth_l * cfg.error_reduction_parameter / dt,
-                0.0,
-                cfg.joint_max_error_reduction_velocity,
-            )
-            blocks.append((Jl, valid_l, b_l, torch.zeros_like(b_l)))
-        M = c.motor_J.shape[0]
-        if M > 0:
-            b_m = _pad(control)[c.motor_target] - torch.sum(c.motor_J * v_pre[None], dim=1)
-            blocks.append((c.motor_J.expand(M, nv, B),
-                           torch.ones_like(b_m, dtype=torch.bool), b_m,
-                           torch.zeros_like(b_m)))
-        for k in c.dyn:
-            blocks.append(self._dynamic_block(k, v_pre, W, R_wb, p_wb))
-        J = torch.cat([blk[0] for blk in blocks], dim=0)
-        valid = torch.cat([blk[1] for blk in blocks], dim=0)
-        b = torch.cat([blk[2] for blk in blocks], dim=0)
-        mu = torch.cat([blk[3] for blk in blocks], dim=0)
-        vf = valid.to(q.dtype)
-        return J * vf[:, None, :], b * vf, mu * vf, valid
+        valid (n, B) (ConstraintAssembler.assemble_b)."""
+        return self.assembler.assemble_b(q, v_pre, cpoint, cnormal, cdepth, W, R_wb, p_wb,
+                                         control)
 
     def _prepare_body_params(self, body_params, dtype, B):
         """A body-parameter dict in the engine's layout, as the JAX
@@ -588,17 +423,12 @@ class BatchedEngine:
         self._check("z_warm", z_warm, self.num_rows)
         return z_warm
 
-    def _contact_valid(self, cdepth):
-        """Contact slots whose rows are live: 0 < depth <= the clipping
-        depth, (C, B) bool."""
-        return (cdepth > 0.0) & (cdepth <= self.world.solver.contact_clipping_depth)
-
     def _cap_rows(self, cdepth):
         """The capped LCP's contact rows, (3 cap, B): per world the `cap`
         slots of highest score (the depth of a live slot, else -1; ties to
         the lower slot, as jax.lax.top_k breaks them), in slot order,
         three rows each."""
-        score = torch.where(self._contact_valid(cdepth), cdepth,
+        score = torch.where(self.assembler.contact_valid(cdepth), cdepth,
                             torch.full_like(cdepth, -1.0))
         order = torch.sort(score.T, dim=1, descending=True, stable=True).indices
         slots = torch.sort(order[:, : self.contact_cap], dim=1).values  # (B, cap)

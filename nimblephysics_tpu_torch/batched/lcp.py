@@ -225,10 +225,13 @@ def _UVt(U, V, x):
     return torch.sum(U * u[None, :, :], dim=1)
 
 
-def _refine_masks(meta: LcpMeta, F, cfm, b, mu, clamping, upper, sign_u, at_hi):
-    """Masked-Dantzig refinement round (parity with constraint/lcp)."""
+def _refine_masks(meta: LcpMeta, F, cfm, b, mu, clamping, upper, sign_u, at_hi,
+                  pinned=None):
+    """Masked-Dantzig refinement round (parity with constraint/lcp).
+    pinned: the pinned solve to refine with (the rank-factored one of this
+    module by default; the single world's gathered one)."""
     tol = _dtype_tol(meta, F.dtype)
-    z = _pinned_solve(
+    z = (pinned or _pinned_solve)(
         meta, F, cfm, b, mu, clamping, upper, sign_u, at_hi=at_hi,
         polish=False,
     )

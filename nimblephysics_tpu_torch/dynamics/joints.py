@@ -1,17 +1,23 @@
-"""Joint type tags and the static joint spec (plan fields only).
+"""Joint type tags, the static joint spec, and one joint's Q(q), S(q),
+S-dot and position integration.
 
 Counterpart of nimblephysics_tpu/dynamics/joints.py. Conventions match
 the reference: T_rel(q) = T_pj @ Q(q) @ inv(T_cj), and the child body's
-relative spatial velocity is Ad(T_cj) S(q) qdot. The batched kinematics
-of the supported types live in batched/articulated.py.
+relative spatial velocity is Ad(T_cj) S(q) qdot. The kinematics of every
+type but the spline-driven ones live in batched/articulated.py (Q as
+rotation factors and translation terms, S and its rate in closed form);
+the functions here run them on a world of one joint, with T_pj = T_cj =
+I, and a batch of one.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
+import torch
 
 REVOLUTE = "revolute"
 PRISMATIC = "prismatic"
@@ -54,8 +60,8 @@ _NUM_DOFS = {
 def num_dofs(joint_type: str) -> int:
     if joint_type not in _NUM_DOFS:
         raise NotImplementedError(
-            f"joint type {joint_type!r}: spline-driven custom joints come "
-            "with the single-world reference path (ROADMAP queue 1 item 10)"
+            f"joint type {joint_type!r}: the spline-driven joints come with "
+            "math/splines.py (ROADMAP queue 1 item 10c)"
         )
     return _NUM_DOFS[joint_type]
 
@@ -112,3 +118,57 @@ class JointSpec:
 
     def velocity_limit_vec(self):
         return self._coeff("velocity_limit", np.inf)
+
+
+@functools.lru_cache(maxsize=256)
+def _joint_world(spec: JointSpec):
+    """The FlatWorld of a world holding this joint alone: its one body at
+    the root, T_pj = T_cj = I, so that fk's S is the joint-frame S."""
+    from nimblephysics_tpu_torch.batched.articulated import FlatWorld
+    from nimblephysics_tpu_torch.dynamics.skeleton import BodySpec, Skeleton
+    from nimblephysics_tpu_torch.simulation.world import World
+
+    sk = Skeleton("joint")
+    sk.joints.append(dataclasses.replace(spec, parent=-1, child=0, q_index=0,
+                                         T_pj=np.eye(4), T_cj=np.eye(4)))
+    sk.bodies.append(BodySpec("joint", 1.0, np.zeros(3), np.eye(3)))
+    world = World()
+    world.skeletons.append(sk)
+    return FlatWorld(world)
+
+
+def joint_transform(spec: JointSpec, q: torch.Tensor) -> torch.Tensor:
+    """Q(q), the joint's configuration transform, 4x4."""
+    from nimblephysics_tpu_torch.batched.articulated import _joint_Q
+    from nimblephysics_tpu_torch.math.lie import rp_to_transform
+
+    fw = _joint_world(spec)
+    Rq, pq, _ = _joint_Q(fw.tensors(q.dtype, q.device), q[:, None])
+    return rp_to_transform(Rq[0, :, :, 0], pq[0, :, 0])
+
+
+def joint_body_jacobian(spec: JointSpec, q: torch.Tensor) -> torch.Tensor:
+    """S(q) (6, ndof): qdot -> the joint-frame body twist of Q."""
+    from nimblephysics_tpu_torch.batched.articulated import fk
+
+    if spec.num_dofs == 0:
+        return q.new_zeros(6, 0)
+    S = fk(_joint_world(spec), q[:, None])[3][0]  # (6, nd, 1)
+    return S[..., 0]
+
+
+def joint_body_jacobian_dot(spec: JointSpec, q: torch.Tensor, dq: torch.Tensor) -> torch.Tensor:
+    """S-dot(q, qdot) = (dS/dq) qdot (6, ndof), by forward-mode
+    differentiation of S. The step needs only S-dot qdot, which
+    batched/articulated.py writes in closed form."""
+    if spec.num_dofs == 0:
+        return q.new_zeros(6, 0)
+    return torch.func.jvp(lambda qq: joint_body_jacobian(spec, qq), (q,), (dq,))[1]
+
+
+def integrate_positions(spec: JointSpec, q: torch.Tensor, dq: torch.Tensor, dt) -> torch.Tensor:
+    """q_{t+1} from q_t, qdot and dt: q + qdot dt, and for ball and free
+    joints the composition on the group, R' = exp(w) exp(J_r(w) dw dt)."""
+    from nimblephysics_tpu_torch.batched.articulated import integrate_positions as ip
+
+    return ip(_joint_world(spec), q[:, None], dq[:, None], dt)[:, 0]

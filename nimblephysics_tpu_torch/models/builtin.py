@@ -1,6 +1,6 @@
 """Model zoo: the half-cheetah benchmark world, the box stack, the
-reference benchmark suite's jump-worm and catapult worlds and the
-inverted double pendulum, built in code.
+reference benchmark suite's jump-worm and catapult worlds, the cartpole,
+the inverted double pendulum and the box drop, built in code.
 
 Counterpart of nimblephysics_tpu/models/builtin.py (physical parameters
 of the reference assets data/skel/half_cheetah.skel and
@@ -24,6 +24,7 @@ from nimblephysics_tpu_torch.dynamics.joints import (
 )
 from nimblephysics_tpu_torch.dynamics.shapes import ShapeSpec
 from nimblephysics_tpu_torch.dynamics.skeleton import Skeleton
+from nimblephysics_tpu_torch.math.spatial import inertia_box, inertia_capsule
 from nimblephysics_tpu_torch.simulation.world import World
 
 _HALF_PI = np.pi / 2.0
@@ -52,33 +53,9 @@ def _capsule(radius, height, T_offset=None, mu=1.0, e=0.0) -> ShapeSpec:
     )
 
 
-def inertia_box(mass, size) -> np.ndarray:
-    """Moment of a solid box with full side lengths `size` (3,) about its
-    COM (math/spatial.inertia_box of the JAX package)."""
-    x, y, z = np.asarray(size, dtype=np.float64)
-    return np.diag([y * y + z * z, x * x + z * z, x * x + y * y]) * mass / 12.0
-
-
-def _inertia_capsule(mass, radius, height) -> np.ndarray:
-    """Solid capsule about its COM, axis z (CapsuleShape::computeInertia):
-    mass split between the cylinder and the caps by volume."""
-    rr = radius * radius
-    v_cyl = np.pi * rr * height
-    v_sph = 4.0 / 3.0 * np.pi * rr * radius
-    v = v_cyl + v_sph
-    m_cyl = mass * v_cyl / v
-    m_sph = mass * v_sph / v
-    h = height
-    ixx = m_cyl * (3.0 * rr + h * h) / 12.0 + m_sph * (
-        0.4 * rr + 0.375 * radius * h + 0.25 * h * h
-    )
-    izz = m_cyl * rr / 2.0 + m_sph * 0.4 * rr
-    return np.diag([ixx, ixx, izz])
-
-
 def _capsule_inertia(mass, radius, height, T_offset) -> np.ndarray:
     R = T_offset[:3, :3]
-    return R @ _inertia_capsule(mass, radius, height) @ R.T
+    return R @ inertia_capsule(mass, radius, height).numpy() @ R.T
 
 
 def half_cheetah(
@@ -234,6 +211,31 @@ def box_stack(
     return w, q0, np.zeros(6 * n_boxes)
 
 
+def cartpole() -> Tuple[World, np.ndarray, np.ndarray]:
+    """Cart (prismatic x) and pole (revolute -z), the reference benchmark
+    config (data/skel/cartpole.skel: masses 9.42/4.90, pole COM +0.3 y,
+    dt 0.02, gravity -y, limits +-1 / +-1.57, damping 1.0)."""
+    w = World(name="cartpole", gravity=(0.0, -9.81, 0.0), time_step=0.02)
+    sk = Skeleton("cartpole")
+    cap_T = _T((0, 0, 0), (0.0, 1.57, 0.0))
+    cart = sk.add_joint_and_body(
+        PRISMATIC, parent=-1, name="cart", axis=[1.0, 0.0, 0.0], mass=9.42477796,
+        inertia=_capsule_inertia(9.42477796, 0.1, 0.2, cap_T),
+        shapes=(_capsule(0.1, 0.2, cap_T),), position_lower=[-1.0],
+        position_upper=[1.0], damping=[1.0],
+    )
+    pole_T = _T((0.0, 0.3, 0.0), (1.57, 0.0, 0.0))
+    sk.add_joint_and_body(
+        REVOLUTE, parent=cart, name="pole", axis=[0.0, 0.0, -1.0], mass=4.8953899,
+        com=np.array([0.0, 0.3, 0.0]),
+        inertia=_capsule_inertia(4.8953899, 0.049, 0.6, pole_T),
+        shapes=(_capsule(0.049, 0.6, pole_T),), position_lower=[-1.57],
+        position_upper=[1.57], damping=[1.0],
+    )
+    w.add_skeleton(sk)
+    return w, np.zeros(2), np.zeros(2)
+
+
 def inverted_double_pendulum() -> Tuple[World, np.ndarray, np.ndarray]:
     """Cart + two-link pole (3 dof) with no collidable shape: a world with
     no constraint rows."""
@@ -354,3 +356,27 @@ def catapult() -> Tuple[World, np.ndarray, np.ndarray]:
     # The reference's start: arm [45 deg, 0, 0.65 rad], projectile (0, 0).
     q0 = np.array([0.0, 0.0, np.pi / 4.0, 0.0, 0.65])
     return w, q0, np.zeros(5)
+
+
+def box_drop(height: float = 0.5, size=(0.2, 0.2, 0.2), friction: float = 0.8,
+             restitution: float = 0.0) -> Tuple[World, np.ndarray, np.ndarray]:
+    """A free box over a ground plane: one island, a friction cone and
+    the gradient through the contact LCP."""
+    w = World(name="box_drop", time_step=0.001)
+    sk = Skeleton("box")
+    sk.add_joint_and_body(
+        FREE, name="box", mass=1.0, inertia=inertia_box(1.0, np.asarray(size)).numpy(),
+        shapes=(ShapeSpec("box", np.asarray(size, dtype=np.float64), friction=friction,
+                          restitution=restitution),),
+    )
+    w.add_skeleton(sk)
+    ground = Skeleton("ground")
+    ground.add_joint_and_body(
+        WELD, name="ground", mass=1.0,
+        shapes=(ShapeSpec("plane", np.array([0.0, 0.0, 1.0, 0.0]), friction=friction,
+                          restitution=1.0),),
+    )
+    w.add_skeleton(ground)
+    q0 = np.zeros(6)
+    q0[5] = height
+    return w, q0, np.zeros(6)

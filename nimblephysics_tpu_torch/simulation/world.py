@@ -1,9 +1,13 @@
-"""World: skeletons, gravity, time step and solver config (static spec).
+"""World: skeletons, gravity, time step and solver config (static spec),
+and the world-level functions of one world.
 
-Counterpart of the plan surface of nimblephysics_tpu/simulation/world.py:
-SolverConfig (with the throughput() preset), dof/body bookkeeping across
-skeletons, the action space, limits, actuator types and the user-added
-weld and ball constraints. Stepping lives in batched/engine.py.
+Counterpart of nimblephysics_tpu/simulation/world.py: SolverConfig (with
+the throughput() preset), dof/body bookkeeping across skeletons, the
+action space, limits, actuator types and the user-added weld and ball
+constraints; split_state/merge_state and the per-skeleton kinematics,
+mass matrix, forward dynamics and position integration concatenated over
+the world. Stepping lives in neural/timestep.py (one world) and
+batched/engine.py (a batch).
 """
 
 from __future__ import annotations
@@ -13,6 +17,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+import torch
+
+from nimblephysics_tpu_torch.dynamics import skeleton as SK
 from nimblephysics_tpu_torch.dynamics.skeleton import Skeleton, _unique_name
 
 
@@ -168,6 +175,9 @@ class World:
     def num_bodies(self) -> int:
         return sum(s.num_bodies for s in self.skeletons)
 
+    def dof_offsets(self) -> List[int]:
+        return [s for s, _ in self.dof_slices()]
+
     def body_offsets(self) -> List[int]:
         offs, c = [], 0
         for s in self.skeletons:
@@ -195,6 +205,19 @@ class World:
     def action_size(self) -> int:
         return len(self.action_indices)
 
+    @property
+    def state_size(self) -> int:
+        return 2 * self.num_dofs
+
+    def action_to_forces(self, action: torch.Tensor) -> torch.Tensor:
+        """Scatter an action vector (na,) into the control forces (nv,)."""
+        idx = torch.as_tensor(self.action_indices.astype(np.int64), device=action.device)
+        return action.new_zeros(self.num_dofs).index_copy(0, idx, action)
+
+    def forces_to_action(self, tau: torch.Tensor) -> torch.Tensor:
+        idx = torch.as_tensor(self.action_indices.astype(np.int64), device=tau.device)
+        return tau[idx]
+
     def _per_dof(self, getter) -> np.ndarray:
         if not self.skeletons:
             return np.zeros(0)
@@ -217,3 +240,62 @@ class World:
             f"World({self.name!r}, skeletons={len(self.skeletons)}, "
             f"dofs={self.num_dofs})"
         )
+
+
+# ---------------------------------------------------------------------------
+# World-level functions of one world (per-skeleton quantities concatenated)
+# ---------------------------------------------------------------------------
+
+
+def split_state(world: World, state: torch.Tensor):
+    nv = world.num_dofs
+    return state[:nv], state[nv:]
+
+
+def merge_state(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return torch.cat([q, v])
+
+
+def _widen(J, s, e, nv):
+    """A skeleton's (..., nd) Jacobian columns placed at dofs [s, e) of
+    nv."""
+    return torch.cat([J.new_zeros(*J.shape[:-1], s), J,
+                      J.new_zeros(*J.shape[:-1], nv - e)], dim=-1)
+
+
+def world_fk(world: World, q: torch.Tensor) -> torch.Tensor:
+    """World transforms of every body across the skeletons, (NB, 4, 4)."""
+    return torch.cat([SK.forward_kinematics(sk, q[s:e])
+                      for sk, (s, e) in zip(world.skeletons, world.dof_slices())])
+
+
+def world_full_kinematics(world: World, q: torch.Tensor, dq: torch.Tensor):
+    """FK, body twists and world-width system Jacobians of every body:
+    {"T_wb" (NB, 4, 4), "V" (NB, 6), "J_world" (NB, 6, nv)}."""
+    nv = world.num_dofs
+    T, V, Jw = [], [], []
+    for sk, (s, e) in zip(world.skeletons, world.dof_slices()):
+        kin = SK.full_kinematics(sk, q[s:e], dq[s:e])
+        T.append(kin["T_wb"])
+        V.append(kin["V"])
+        Jw.append(_widen(kin["J_world"], s, e, nv))
+    return {"T_wb": torch.cat(T), "V": torch.cat(V), "J_world": torch.cat(Jw)}
+
+
+def world_mass_matrix(world: World, q: torch.Tensor) -> torch.Tensor:
+    """The block-diagonal world mass matrix (nv, nv)."""
+    return torch.block_diag(*[SK.mass_matrix(sk, q[s:e])
+                              for sk, (s, e) in zip(world.skeletons, world.dof_slices())])
+
+
+def world_forward_dynamics(world: World, q, dq, tau) -> torch.Tensor:
+    """Unconstrained accelerations, skeleton by skeleton, under the world's
+    gravity."""
+    return torch.cat([
+        SK.forward_dynamics(sk, q[s:e], dq[s:e], tau[s:e], gravity=world.gravity)
+        for sk, (s, e) in zip(world.skeletons, world.dof_slices())])
+
+
+def world_integrate_positions(world: World, q, dq, dt) -> torch.Tensor:
+    return torch.cat([SK.integrate_positions(sk, q[s:e], dq[s:e], dt)
+                      for sk, (s, e) in zip(world.skeletons, world.dof_slices())])

@@ -3,7 +3,7 @@
 one NVIDIA GPU.
 
     python3 profile_torch_step.py [--world half_cheetah|box3|box10|box20|
-                                           jump_worm|catapult] [--trace PATH]
+                                           jump_worm|catapult|single] [--trace PATH]
 
 Builds the main path of chip_smoke.py with its own functions (4096
 worlds, float32) and traces it with torch.profiler. For the half-cheetah
@@ -20,7 +20,11 @@ untraced steps, TRACED_STEPS traced; box10 and box20 the same for the
 (2048 and 1024). For --world jump_worm or catapult,
 the reference suite's world under the default SolverConfig driven by its
 policy (chip_smoke's make_ref_engine, ref_start and policy_rollout),
-after chip_smoke.STEPS untraced steps.
+after chip_smoke.STEPS untraced steps. For --world single, the
+single-world half-cheetah step (neural.Engine, float64) from the last
+state in contact of chip_smoke's CPU rollout (sw_cpu_rollout),
+TRACED_STEPS steps from that state, and the CUDA launches of each part of
+one step (the smooth dynamics, collision and rows; the LCP; its seed).
 Prints, per env-step of each cell: host milliseconds, CUDA kernel
 launches, summed kernel time and the device's busy share of the wall
 time, and the kernels that take the most device time; with --trace,
@@ -108,10 +112,50 @@ def profile(label, fn, steps, trace=None, batch=None):
     return summary
 
 
+def profile_single(dev, trace=None):
+    """The single-world step's trace and the launches of its parts."""
+    import dataclasses
+
+    from nimblephysics_tpu_torch.constraint import lcp
+    from nimblephysics_tpu_torch.neural import Engine
+
+    world, us, _, states, _, _, _ = chip_smoke.sw_cpu_rollout()
+    k = max(i for i, s in enumerate(states) if float(s[2].abs().max()) > 0)
+    q, v, z = chip_smoke.sw_on(dev, states[k])
+    u = us[k].to(dev)
+    eng = Engine(world, device=dev)
+    meta, cfg = eng.assembler.meta, world.solver
+    for _ in range(3):  # warm-up
+        eng.step(q, v, u, z_warm=z)
+    torch.cuda.synchronize()
+    summary = profile(
+        "single_world_float64",
+        lambda: [eng.step(q, v, u, z_warm=z) for _ in range(TRACED_STEPS)],
+        TRACED_STEPS, trace, 1)
+    prob = eng.lcp_problem(q, v, u)
+
+    def seed():
+        z0 = lcp._apgd(meta, prob.F, cfg.cfm, prob.b, prob.mu, z)
+        return lcp._pgs(dataclasses.replace(meta, iterations=meta.seed_pgs_sweeps),
+                        prob.F, cfg.cfm, prob.b, prob.mu, z0)
+
+    parts = {
+        "step": lambda: eng.step(q, v, u, z_warm=z),
+        "lcp_problem (smooth dynamics, collision, rows, F)": lambda: eng.lcp_problem(q, v, u),
+        "boxed_lcp": lambda: lcp.boxed_lcp(meta, prob.F, prob.b, prob.mu, z, cfm=cfg.cfm,
+                                           fallback_cfm=cfg.fallback_cfm),
+        "boxed_lcp's seed (APGD and its PGS sweeps)": seed,
+    }
+    summary["launches"] = {name: chip_smoke.count_launches(fn) for name, fn in parts.items()}
+    for name, n in summary["launches"].items():
+        print(f"  {n:7d} launches  {name}")
+    return summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--world", choices=("half_cheetah", "box3", "box10", "box20")
-                    + chip_smoke.REF_WORLDS,
+                    + chip_smoke.REF_WORLDS + ("single",),
                     default="half_cheetah")
     ap.add_argument("--trace", help="write Chrome traces to this path")
     args = ap.parse_args()
@@ -126,6 +170,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     summaries = []
+    if args.world == "single":
+        print(json.dumps([profile_single(dev, args.trace)]))
+        return 0
     if args.world.startswith("box"):
         boxes = int(args.world[3:])
         cap, worlds = next(((c, w) for b, c, w in chip_smoke.BOX_WIDE_LEGS if b == boxes),

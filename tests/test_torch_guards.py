@@ -5,7 +5,9 @@
   nimblephysics_tpu, checked statically per file and by importing every
   module in a fresh interpreter. The name test is exact: the port's own
   name starts with "nimblephysics_tpu".
-* Entry points run on the card unless the caller asks for the CPU.
+* Entry points run on the card unless the caller asks for the CPU
+  (BatchedEngine, the single-world Engine and get_engine), and timestep
+  steps on its state's device, refusing inputs on another.
 * The kernel module imports, and its CPU path runs, with no nvcc and no
   GPU; nothing is compiled at import.
 """
@@ -93,6 +95,48 @@ def test_engine_defaults_to_the_card():
     assert eng.device.type == "cpu" and eng.dtype == torch.float64
 
 
+@pytest.mark.parametrize("entry", ["Engine", "get_engine"])
+def test_single_world_engine_defaults_to_the_card(entry):
+    """The single-world Engine and get_engine take the card unless asked
+    for the CPU, and step there when asked."""
+    from nimblephysics_tpu_torch import neural
+    from nimblephysics_tpu_torch.models import cartpole
+
+    world, q0, _ = cartpole()
+    make = getattr(neural, entry)
+    if torch.cuda.is_available():
+        assert make(world).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make(world)
+    eng = make(world, device="cpu")
+    assert eng.device.type == "cpu" and eng.dtype == torch.float64
+    x = torch.as_tensor(q0, dtype=torch.float64)
+    assert torch.isfinite(eng.step(x, torch.zeros_like(x), torch.zeros_like(x)).v).all()
+    if entry == "get_engine":
+        assert neural.get_engine(world, device="cpu") is eng
+
+
+def test_timestep_refuses_mixed_devices():
+    """timestep steps on its state's device and copies nothing: an action
+    (or masses) on another device raises, as a state on the card would
+    here (the "meta" device stands in for a second one)."""
+    import nimblephysics_tpu_torch as nt
+    from nimblephysics_tpu_torch.models import cartpole
+
+    world, _, _ = cartpole()
+    state = torch.zeros(4, dtype=torch.float64)
+    with pytest.raises(ValueError, match="copies nothing"):
+        nt.timestep(world, state, torch.zeros(2, dtype=torch.float64, device="meta"))
+    with pytest.raises(ValueError, match="copies nothing"):
+        nt.timestep(world, state, torch.zeros(2, dtype=torch.float64),
+                    masses=torch.ones(2, dtype=torch.float64, device="meta"))
+    eng = nt.neural.Engine(world, device="cpu")
+    with pytest.raises(ValueError, match="this engine takes"):
+        eng.step(state[:2].float(), state[2:].float(), state[2:].float())
+    assert nt.timestep(world, state, torch.zeros(2, dtype=torch.float64)).shape == (4,)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors_without_launching():
     from nimblephysics_tpu_torch.batched import lcp_cuda
     from nimblephysics_tpu_torch.constraint.lcp import LcpMeta
@@ -135,3 +179,10 @@ def test_off_slice_options_raise(what):
         world.max_contacts = 4  # of the cheetah's 16 slots
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BatchedEngine(world, **kw)
+    from nimblephysics_tpu_torch.neural import Engine
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng = Engine(world, device="cpu")
+        # A joint type is refused where its kinematics first run.
+        x = torch.zeros(world.num_dofs, dtype=torch.float64)
+        eng.step(x, x, x)

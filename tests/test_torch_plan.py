@@ -171,3 +171,50 @@ def test_box_world_plans_match_jax(name):
         np.testing.assert_allclose(q0, BOX_WORLDS[name]()[2])
         assert [s.kind for s in BatchedEngine(bw, device="cpu").bcollider.slots] == [
             s.kind for s in tc.slots]
+
+
+@pytest.mark.parametrize("name", ["cartpole", "box_drop"])
+def test_single_world_model_plans_match_jax(name):
+    """The port's cartpole and box_drop against the JAX models: sizes, the
+    flattened joints and inertias, LcpMeta, limit rows and collider
+    slots, and the same world carried across with world_from_arrays."""
+    import nimblephysics_tpu.models as jm
+    from nimblephysics_tpu.neural.timestep import Engine as JaxSingle
+
+    import nimblephysics_tpu_torch.models as tm
+    from nimblephysics_tpu_torch.neural import Engine
+
+    jw, jq0, jv0 = getattr(jm, name)()
+    tw, tq0, tv0 = getattr(tm, name)()
+    np.testing.assert_array_equal(tq0, jq0)
+    np.testing.assert_array_equal(tv0, jv0)
+    for world in (tw, world_from_arrays(dump_world(jw))):
+        je, te = JaxSingle(jw), Engine(world, device="cpu")
+        assert te.world.num_dofs == jw.num_dofs and te.world.num_bodies == jw.num_bodies
+        assert te.num_constraint_rows == je.num_constraint_rows
+        assert te.world.time_step == jw.time_step
+        np.testing.assert_array_equal(te.world.gravity, jw.gravity)
+        np.testing.assert_array_equal(te.world.action_indices, jw.action_indices)
+        jf, tf = JaxFlat(jw), FlatWorld(world)
+        np.testing.assert_array_equal(tf.anc, jf.anc)
+        for a, b in zip(tf.G_body, jf.G_body):
+            np.testing.assert_allclose(a, b, rtol=1e-14, atol=1e-14)
+        for tj, jj in zip(tf.joints, jf.joints):
+            assert (tj.parent, tj.q_index, tj.num_dofs, tj.spec.joint_type) == (
+                jj.parent, jj.q_index, jj.num_dofs, jj.spec.joint_type)
+            for f in ("R_pj", "p_pj", "R_ci", "p_ci", "Ad_cj"):
+                np.testing.assert_allclose(getattr(tj, f), getattr(jj, f), atol=1e-14)
+        tm_, jm_ = te.assembler.meta, je.assembler.meta
+        np.testing.assert_array_equal(tm_.findex, jm_.findex)
+        np.testing.assert_array_equal(tm_.is_friction, jm_.is_friction)
+        for f in ("lo_const", "hi_const", "iterations", "tol", "ridge", "refine_rounds",
+                  "seed_pgs_sweeps", "k_active", "solver"):
+            assert getattr(tm_, f) == getattr(jm_, f), f
+        assert [(r.dof, r.sign, r.limit) for r in te.assembler.limit_rows] == [
+            (r.dof, r.sign, r.limit) for r in je.assembler.limit_rows]
+        assert [(s.kind, s.body_a, s.body_b, s.n_slots) for s in te.collider.slots] == [
+            (s.kind, s.body_a, s.body_b, s.n_slots) for s in je.collider.slots]
+        np.testing.assert_allclose(world.skeletons[0].damping_coeffs(),
+                                   jw.skeletons[0].damping_coeffs())
+    expect = {"cartpole": (0, 4), "box_drop": (8, 24)}[name]
+    assert (te.collider.num_contacts, te.num_constraint_rows) == expect
