@@ -93,11 +93,21 @@ Phases (any failure exits non-zero and prints no result line):
      path and to the float64 rollout's deepest contact); a 4-step VJP in
      (q, v, control, masses), card vs CPU; and no launch of the seed
      kernel (the single-world path runs none);
+ 21. the BackpropSnapshot Jacobians (neural/backprop_snapshot.py, float64):
+     on the half-cheetah at the rollout state of phase 20 whose
+     cold-started step has the most live impulse rows, box_drop landing
+     on one corner and the verification battery's sphere stack, the
+     state, action, force-vel and mass-vel Jacobians and backprop_state,
+     card vs CPU, with a planted fault (the impulses detached: no contact
+     gradient) that must miss the limit; J^T g against backprop_state on
+     the card; box_drop's state Jacobian against Ridders FD stepped on
+     the card; float32 card vs CPU (printed); ms and CUDA launches of the
+     forward pass, each Jacobian and backprop_state; no seed launch;
   then a JSON line per kernel and, last, {"ok": true, "device": ...}.
 
-`python3 chip_smoke.py --only 9,18,19,20` runs phases 1-2 and the listed
-ones of 9, 18, 19 and 20, and prints no result line (for iterating on
-them).
+`python3 chip_smoke.py --only 9,18,19,20,21` runs phases 1-2 and the
+listed ones of 9, 18, 19, 20 and 21, and prints no result line (for
+iterating on them).
 
 Matmuls run in full float32: TF32 is switched off for matmuls and cuDNN,
 since F = J L^-T and the pinned solves would otherwise keep only ~3
@@ -668,14 +678,16 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 
 
 def count_launches(fn):
-    """CUDA kernel launches fn() makes, from torch.profiler's host events."""
+    """CUDA kernel launches fn() makes, from torch.profiler's host events,
+    read from its raw Kineto events (building the profiler's event tree
+    takes seconds for each 100k events; a Jacobian makes ~75k launches)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CPU
-               and e.name in LAUNCH_CALLS)
+    cpu = torch.autograd.DeviceType.CPU
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cpu and e.name() in LAUNCH_CALLS)
 
 
 def make_box_engine(dev, n_boxes, cap=None, dtype=torch.float32):
@@ -2196,6 +2208,182 @@ def phase20(dev, smi):
           f"{launches} CUDA launches a step; {SW_VJP_STEPS}-step VJP {vjp_ms:.3f} ms")
 
 
+# Phase 21: the BackpropSnapshot Jacobian API (neural/backprop_snapshot.py)
+# on the card, float64, against the CPU from the same state. Set before
+# any reading: each Jacobian and backprop_state, card vs CPU, to SW_VJP of
+# 1 + max|.|; on the card J^T g equals backprop_state to SNAP_JTG of
+# 1 + max|.|; box_drop's state Jacobian against the port's Ridders FD
+# stepped on the card at the verification battery's 2e-6.
+SNAP_JTG = 1e-10
+SNAP_FD = 2e-6
+# benchmark_jacobians' samples a Jacobian (each one batched reverse pass).
+SNAP_SAMPLES = 1
+
+
+def _free_sphere(radius=0.1):
+    """tests/worlds.py's free_sphere: a free unit-mass sphere."""
+    from nimblephysics_tpu_torch.dynamics import FREE, ShapeSpec, Skeleton
+
+    sk = Skeleton("sphere")
+    sk.add_joint_and_body(FREE, name="sphere", mass=1.0, inertia=np.eye(3) * 0.4 * radius**2,
+                          shapes=(ShapeSpec("sphere", np.array([radius])),))
+    return sk
+
+
+def sphere_stack():
+    """tests/test_verify_battery.py's sphere_stack: two spheres stacked on
+    the ground, the lower one pushed along x: (world, state, action)."""
+    world = sw_world(_ground(), _free_sphere(), _free_sphere())
+    q = np.zeros(12)
+    q[5], q[11] = 0.0999, 0.2995
+    u = np.zeros(12)
+    u[3] = 0.3
+    return world, np.concatenate([q, np.zeros(12)]), u
+
+
+def snap_worlds():
+    """Phase 21's (label, world, state, action), float64 on the CPU: the
+    half-cheetah at the state of sw_cpu_rollout whose cold-started step
+    has the most live impulse rows (the latest of those), box_drop landing
+    on one corner, and the battery's sphere stack."""
+    from nimblephysics_tpu_torch.math import lie
+    from nimblephysics_tpu_torch.models import box_drop
+
+    world, us, cpu, states, *_ = sw_cpu_rollout()
+    best = (0, None)
+    for k in range(SW_STEPS - 1):
+        if float(states[k + 1][2].abs().max()) > 0:  # step k has impulses warm-started
+            live = int((cpu.step(*states[k][:2], us[k]).impulses.abs() > 0).sum())
+            best = max(best, (live, k))
+    live, k = best
+    check(live > 0, "no state of the half-cheetah rollout has a cold-started impulse")
+    out = [(f"half-cheetah (step {k}, {live} live rows)", world,
+            torch.cat(states[k][:2]), world.forces_to_action(us[k]))]
+    bw, _, _ = box_drop()
+    rng = np.random.RandomState(SEED + 21)
+    R = lie.exp_map_rot(torch.tensor([0.5, 0.4, 0.0], dtype=torch.float64)).numpy()
+    q = np.r_[0.5, 0.4, 0.0, 0.0, 0.0, np.max(np.abs(R) @ np.full(3, 0.1)) - 1e-3]
+    v = np.r_[0.3 * rng.randn(3), 0.2, -0.1, -0.8]
+    out.append(("box_drop (one corner)", bw, torch.as_tensor(np.r_[q, v]),
+                torch.zeros(6, dtype=torch.float64)))
+    sw, state, u = sphere_stack()
+    out.append(("sphere_stack", sw, torch.as_tensor(state), torch.as_tensor(u)))
+    return out
+
+
+def snap_readings(snap, g):
+    """What phase 21 holds card vs CPU: the state, action, force-vel and
+    mass-vel Jacobians, and backprop_state(g) concatenated."""
+    ls, la, lm = snap.backprop_state(g)
+    return {"state": snap.get_state_jacobian(), "action": snap.get_action_jacobian(),
+            "force-vel": snap.get_force_vel_jacobian(),
+            "mass-vel": snap.get_mass_vel_jacobian(), "backprop_state": torch.cat([ls, la, lm])}
+
+
+def snap_rel(a, b):
+    """|a - b| over 1 + max|b|, on the CPU in float64."""
+    a, b = (x.detach().cpu().double() for x in (a, b))
+    return float((a - b).abs().max() / (1.0 + b.abs().max()))
+
+
+def phase21(dev, smi):
+    """The BackpropSnapshot Jacobians on the card (module docstring)."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+    from nimblephysics_tpu_torch.dynamics.skeleton import default_body_params
+    from nimblephysics_tpu_torch.neural import forward_pass
+
+    ts_mod = importlib.import_module("nimblephysics_tpu_torch.neural.timestep")
+
+    boxed_lcp = ts_mod.boxed_lcp
+
+    def contact_cut(*args, **kw):  # the planted fault
+        return boxed_lcp(*args, **kw).detach()
+
+    launches0 = lcp_cuda.apgd_seed.launches
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED + 21)
+    worst, worst_jtg, fault = {}, 0.0, []
+    card_snaps = {}
+    for label, world, state, action in snap_worlds():
+        masses = torch.cat([default_body_params(sk)["masses"] for sk in world.skeletons])
+        g = torch.as_tensor(rng.randn(2 * world.num_dofs))
+        cpu = forward_pass(world, state, action, masses=masses)
+        card = forward_pass(world, *sw_on(dev, (state, action)), masses=masses.to(dev))
+        want, got = snap_readings(cpu, g), snap_readings(card, g.to(dev))
+        d = {k: snap_rel(got[k], want[k]) for k in want}
+        worst = {k: max(worst.get(k, 0.0), x) for k, x in d.items()}
+        bs = got["backprop_state"]
+        nv2 = 2 * world.num_dofs
+        jtg = max(snap_rel(bs[:nv2], got["state"].T @ g.to(dev)),
+                  snap_rel(bs[nv2:nv2 + world.action_size], got["action"].T @ g.to(dev)))
+        worst_jtg = max(worst_jtg, jtg)
+        with mock.patch.object(ts_mod, "boxed_lcp", contact_cut):
+            cut = snap_rel(forward_pass(world, state, action).get_state_jacobian(),
+                           got["state"])
+        fault.append(cut)
+        s32 = forward_pass(world, *sw_on(dev, (state, action), torch.float32))
+        c32 = forward_pass(world, state.float(), action.float())
+        f32 = snap_rel(s32.get_state_jacobian(), c32.get_state_jacobian())
+        z = cpu.result.impulses
+        print(f"phase 21 ({label}): {int((z.abs() > 0).sum())} live impulse rows, max|z| "
+              f"{float(z.abs().max()):.4e}; card vs CPU float64, |dJ|/(1+max|J|): "
+              + ", ".join(f"{k} {x:.3e}" for k, x in d.items())
+              + f" (bound {SW_VJP:g}); J^T g vs backprop_state on the card {jtg:.3e} (bound "
+              f"{SNAP_JTG:g}); planted fault (impulses detached) {cut:.3e} (must exceed "
+              f"{SW_VJP:g}); float32 state Jacobian card vs CPU {f32:.3e} (printed, not held); "
+              f"at {time.perf_counter() - t0:.1f} s")
+        check(float(z.abs().max()) > 0, f"{label}: the cold-started step has no impulse")
+        check(max(d.values()) <= SW_VJP, f"{label}: card Jacobians disagree with the CPU")
+        check(jtg <= SNAP_JTG, f"{label}: J^T g differs from backprop_state on the card")
+        check(cut > SW_VJP, f"{label}: the limit cannot tell the contact gradient cut")
+        card_snaps[label.split(" ")[0]] = (world, card, state, action)
+
+    # Box_drop's state Jacobian against Ridders FD, each step on the card.
+    _, box, _, _ = card_snaps["box_drop"]
+    J, fd = box.get_state_jacobian().cpu().numpy(), box.finite_difference_state_jacobian()
+    fd_err = float(np.max(np.abs(J - fd) - SNAP_FD * np.abs(fd)))
+    print(f"phase 21: box_drop state Jacobian vs Ridders FD on the card: max|dJ| "
+          f"{float(np.abs(J - fd).max()):.3e}, max|dJ| - {SNAP_FD:g}|J_fd| {fd_err:.3e} "
+          f"(bound {SNAP_FD:g}); at {time.perf_counter() - t0:.1f} s")
+    check(fd_err <= SNAP_FD, "box_drop state Jacobian disagrees with FD on the card")
+
+    # Costs on the half-cheetah, as a user calls it (no masses): the
+    # forward pass, each Jacobian (one batched reverse pass filling every
+    # block) and backprop_state.
+    world, _, state, action = card_snaps["half-cheetah"]
+    args = sw_on(dev, (state, action))
+    g = torch.as_tensor(rng.randn(2 * world.num_dofs), device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    snap = forward_pass(world, *args)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t1) * 1e3
+    bench = snap.benchmark_jacobians(samples=SNAP_SAMPLES)
+    snap.backprop_state(g)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(SNAP_SAMPLES):
+        snap.backprop_state(g)
+    torch.cuda.synchronize()
+    bp_ms = (time.perf_counter() - t1) / SNAP_SAMPLES * 1e3
+    launches = {  # each Jacobian's on a new snapshot: its reverse pass alone
+        "forward_pass": count_launches(lambda: forward_pass(world, *args)),
+        "state": count_launches(forward_pass(world, *args).get_state_jacobian),
+        "action": count_launches(forward_pass(world, *args).get_action_jacobian),
+        "backprop_state": count_launches(lambda: snap.backprop_state(g)),
+    }
+    check(lcp_cuda.apgd_seed.launches == launches0, "the snapshot launched the seed kernel")
+    print(f"phase 21 (costs): {smi}: half-cheetah float64 snapshot: forward_pass "
+          f"{fwd_ms:.3f} ms, {launches['forward_pass']} CUDA launches; state Jacobian "
+          f"{bench['state'] * 1e3:.3f} ms, {launches['state']} launches; action Jacobian "
+          f"{bench['action'] * 1e3:.3f} ms, {launches['action']} launches; backprop_state "
+          f"{bp_ms:.3f} ms, {launches['backprop_state']} launches; benchmark_jacobians (ms): "
+          + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in bench.items()))
+    print(f"phase 21: card vs CPU worst: " + ", ".join(f"{k} {x:.3e}" for k, x in worst.items())
+          + f"; J^T g {worst_jtg:.3e}; planted fault smallest {min(fault):.3e}; no seed "
+          f"launch; {time.perf_counter() - t0:.1f} s")
+
+
 def wide_kernel_entries(k9, runs):
     """The kernels line's entries for K1b on the 10- and 20-box capped
     LCPs: launches from the phase-18 rollouts, phase 9's numbers."""
@@ -2222,7 +2410,7 @@ def main() -> int:
     only = set()
     if len(sys.argv) > 2 and sys.argv[1] == "--only":
         only = {int(x) for x in sys.argv[2].split(",")}
-        check(only <= {9, 18, 19, 20}, "--only takes phases 9, 18, 19 and 20")
+        check(only <= {9, 18, 19, 20, 21}, "--only takes phases 9, 18, 19, 20 and 21")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2264,6 +2452,8 @@ def main() -> int:
             phase19(dev)
         if 20 in only:
             phase20(dev, smi)
+        if 21 in only:
+            phase21(dev, smi)
         if k9 and runs:
             print(json.dumps({"kernels": wide_kernel_entries(k9, runs)}))
         print(f"chip_smoke: phases 1, 2 and {sorted(only)} passed; no result line "
@@ -2402,8 +2592,9 @@ def main() -> int:
     wide = phase18(dev)
     phase19(dev)
 
-    # 20. The single-world timestep.
+    # 20-21. The single-world timestep; its Jacobians.
     phase20(dev, smi)
+    phase21(dev, smi)
 
     kernel = {
         "name": "apgd_seed",

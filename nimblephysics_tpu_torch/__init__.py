@@ -20,19 +20,38 @@ step through it:
     res = engine.step(q, v, control, z_warm=z)  # (nv, B) / (n, B) tensors
     train = train_step_batched(engine, MlpPolicy(18, 6), horizon=100)
 
+and the Jacobians of one step (neural.forward_pass, a BackpropSnapshot):
+
+    snap = nt.forward_pass(world, state, action)  # state's device and dtype
+    J = snap.get_state_jacobian()  # (2 nv, 2 nv), d[q'; v'] / d[q; v]
+    g_state, g_action, _ = snap.backprop_state(g)  # one reverse pass
+
 Imports torch and numpy, never jax or the JAX package.
 """
 
 
 def __getattr__(name):
-    """`timestep` and the subpackages, imported at first use (as the JAX
-    package's nimblephysics_tpu.timestep)."""
+    """`timestep`, `forward_pass` (`forwardPass`), `map_to_pos`,
+    `map_to_vel` and the subpackages, imported at first use (as the JAX
+    package's root has them)."""
     import importlib
 
     if name == "timestep":
         from nimblephysics_tpu_torch.neural.timestep import timestep
 
         return timestep
+    if name == "forward_pass" or name == "forwardPass":
+        from nimblephysics_tpu_torch.neural.backprop_snapshot import forward_pass
+
+        return forward_pass
+    if name == "map_to_pos":
+        from nimblephysics_tpu_torch.neural.mappings import map_to_pos
+
+        return map_to_pos
+    if name == "map_to_vel":
+        from nimblephysics_tpu_torch.neural.mappings import map_to_vel
+
+        return map_to_vel
     if name in ("batched", "collision", "constraint", "dynamics", "math", "models",
                 "neural", "parallel", "simulation"):
         return importlib.import_module(f"nimblephysics_tpu_torch.{name}")

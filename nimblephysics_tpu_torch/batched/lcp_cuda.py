@@ -196,6 +196,42 @@ def seed_plan(n: int, r: int, smem_limit: int) -> SeedPlan:
     return plan if plan.fits else _wide_plan(n, r, smem_limit)
 
 
+def _side(a, b, half):
+    """d max(a, b) / d a as torch.maximum differentiates it: 1 where a > b,
+    1/2 (`half`, a 0-d tensor) at a tie, else 0; a and b not both
+    infinite."""
+    return torch.heaviside(a - b, half)
+
+
+class _Clip(torch.autograd.Function):
+    """min(max(x, lo), hi) of tensors, x finite, with the gradient
+    torch.minimum and torch.maximum give it (ties split in halves), formed
+    in the backward pass as products of the incoming gradient with weights
+    computed from the saved tensors. A Jacobian's rows run the backward
+    vmapped over them (is_grads_batched), and torch.maximum/minimum's own
+    backward takes torch.where, which vmap runs row by row; these products
+    are batched."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        m = torch.maximum(x, lo)
+        ctx.save_for_backward(x, lo, hi, m)
+        return torch.minimum(m, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lo, hi, m = ctx.saved_tensors
+        half = x.new_full((), 0.5)
+        gm = g * _side(hi, m, half)
+        need = ctx.needs_input_grad
+        return (gm * _side(x, lo, half) if need[0] else None,
+                gm * _side(lo, x, half) if need[1] else None,
+                g * _side(m, hi, half) if need[2] else None)
+
+
+clip = _Clip.apply  # clip(x, lo, hi) = torch.minimum(torch.maximum(x, lo), hi)
+
+
 def apgd_plain(meta: LcpMeta, F, cfm, b, mu, z0):
     """Accelerated projected-gradient seed (port of batched/lcp._apgd).
 
@@ -218,11 +254,9 @@ def apgd_plain(meta: LcpMeta, F, cfm, b, mu, z0):
     lo_c, hi_c = _const_bounds(meta, F.dtype, F.device)
 
     def proj(y):
-        zn = torch.where(isf, y, torch.minimum(torch.maximum(y, lo_c), hi_c))
+        zn = torch.where(isf, y, clip(y, lo_c, hi_c))
         bound = mu * torch.clamp(zn[fidx], min=0.0)
-        return torch.where(
-            isf, torch.minimum(torch.maximum(y, -bound), bound), zn
-        )
+        return torch.where(isf, clip(y, -bound, bound), zn)
 
     z, z_prev = z0, z0
     for k in range(meta.iterations):
@@ -262,9 +296,9 @@ def pgs_plain(meta: LcpMeta, F, cfm, b, mu, z0, sweeps=None):
             zi = z[i] + (b[i] - Az_i) * inv_diag[i]
             if meta.is_friction[i]:
                 bound = mu[i] * z[fidx[i]]
-                zi = torch.minimum(torch.maximum(zi, -bound), bound)
+                zi = clip(zi, -bound, bound)
             else:
-                zi = torch.minimum(torch.maximum(zi, lo_c[i]), hi_c[i])
+                zi = clip(zi, lo_c[i], hi_c[i])
             u = u + Fr[i] * (zi - z[i])
             z[i] = zi
     return torch.stack(z)

@@ -1,5 +1,10 @@
-"""Math layer: Lie-group geometry (lie.py) and spatial inertia (spatial.py)."""
+"""Math layer: Lie-group geometry (lie.py), spatial inertia (spatial.py) and
+the finite-difference oracle (finite_difference.py)."""
 
+from nimblephysics_tpu_torch.math.finite_difference import (
+    finite_difference_jacobian,
+    ridders_derivative,
+)
 from nimblephysics_tpu_torch.math.lie import (
     Ad,
     Ad_inv,

@@ -97,6 +97,14 @@ class World:
         # the pre-step velocity.
         self.parallel_velocity_and_position_updates = True
         self.max_contacts: Optional[int] = None
+        # Gradient debug modes (World.hpp:700-713, setUseFDOverride /
+        # setSlowDebugResultsAgainstFD), read by
+        # BackpropSnapshot.get_state_jacobian: the FD override returns the
+        # finite-difference Jacobian; slow-debug computes both and raises
+        # with a repro when they differ by more than fd_debug_tolerance.
+        self.use_fd_override = False
+        self.slow_debug_results_against_fd = False
+        self.fd_debug_tolerance = 1e-5
         self.collision_overrides: Dict[Tuple[int, int], bool] = {}
 
     def add_skeleton(self, skel: Skeleton) -> int:

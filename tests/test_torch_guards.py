@@ -6,8 +6,9 @@
   module in a fresh interpreter. The name test is exact: the port's own
   name starts with "nimblephysics_tpu".
 * Entry points run on the card unless the caller asks for the CPU
-  (BatchedEngine, the single-world Engine and get_engine), and timestep
-  steps on its state's device, refusing inputs on another.
+  (BatchedEngine, the single-world Engine, get_engine, forward_pass and
+  mapped_forward_pass), and timestep and a snapshot step on their state's
+  device, refusing inputs on another.
 * The kernel module imports, and its CPU path runs, with no nvcc and no
   GPU; nothing is compiled at import.
 """
@@ -95,26 +96,44 @@ def test_engine_defaults_to_the_card():
     assert eng.device.type == "cpu" and eng.dtype == torch.float64
 
 
-@pytest.mark.parametrize("entry", ["Engine", "get_engine"])
+@pytest.mark.parametrize("entry", ["Engine", "get_engine", "forward_pass",
+                                   "mapped_forward_pass"])
 def test_single_world_engine_defaults_to_the_card(entry):
-    """The single-world Engine and get_engine take the card unless asked
-    for the CPU, and step there when asked."""
+    """The single-world Engine, get_engine, forward_pass and
+    mapped_forward_pass take the card unless asked for the CPU, and step
+    there when asked; a snapshot refuses an action on another device (the
+    "meta" device stands in for a second one)."""
     from nimblephysics_tpu_torch import neural
     from nimblephysics_tpu_torch.models import cartpole
 
     world, q0, _ = cartpole()
     make = getattr(neural, entry)
+    if entry == "mapped_forward_pass":
+        def make(w, state=None, action=None, **kw):
+            return neural.mapped_forward_pass(w, state, action,
+                                              {"id": neural.IdentityMapping(w)}, **kw)
     if torch.cuda.is_available():
-        assert make(world).device.type == "cuda"
+        made = make(world)
+        assert (made.device if entry in ("Engine", "get_engine") else made.q.device).type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make(world)
-    eng = make(world, device="cpu")
-    assert eng.device.type == "cpu" and eng.dtype == torch.float64
     x = torch.as_tensor(q0, dtype=torch.float64)
-    assert torch.isfinite(eng.step(x, torch.zeros_like(x), torch.zeros_like(x)).v).all()
-    if entry == "get_engine":
-        assert neural.get_engine(world, device="cpu") is eng
+    if entry in ("Engine", "get_engine"):
+        eng = make(world, device="cpu")
+        assert eng.device.type == "cpu" and eng.dtype == torch.float64
+        assert torch.isfinite(eng.step(x, torch.zeros_like(x), torch.zeros_like(x)).v).all()
+        if entry == "get_engine":
+            assert neural.get_engine(world, device="cpu") is eng
+        return
+    snap = make(world, device="cpu")
+    assert snap.q.device.type == "cpu" and snap.q.dtype == torch.float64
+    assert torch.isfinite(snap.get_state_jacobian()).all()
+    state = torch.cat([x, torch.zeros_like(x)])
+    assert make(world, state).engine is neural.get_engine(world, device="cpu")
+    meta = torch.zeros(world.action_size, dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="copies nothing"):
+        make(world, state, meta)
 
 
 def test_timestep_refuses_mixed_devices():

@@ -280,3 +280,67 @@ def reference_pair(name):
     tw, tq0, _ = getattr(tm, name)()
     np.testing.assert_array_equal(tq0, q0)
     return jw, tw, world_from_arrays(dump_world(jw)), np.asarray(q0, np.float64)
+
+
+def jax_step_fn(jax_world):
+    """The JAX package's single-world forward step as one jitted function
+    f(q, v, control, body_params) -> [q'; v'] (cold-started, as the
+    BackpropSnapshot steps), numpy in and out."""
+    import jax
+    import jax.numpy as jnp
+
+    from nimblephysics_tpu.neural.timestep import Engine
+
+    eng = Engine(jax_world)
+
+    @jax.jit
+    def step(q, v, u, bp):
+        r = eng.step(q, v, u, body_params=bp)
+        return jnp.concatenate([r.q, r.v])
+
+    def f(q, v, u, bp=None):
+        return np.asarray(step(q, v, u, bp))
+
+    return f
+
+
+def shallow_cheetah_state(steps=91, control=3.0, seed=20):
+    """(JAX half-cheetah world, port world, q, v, u) of a state in shallow
+    contact (~5 mm deep, six live rows when stepped cold): the state after
+    `steps` steps of the port's CPU float64 rollout from the model's start
+    (root height jittered) under a seeded control of `control` randn on
+    the action dofs drawn each step, warm-started, as chip_smoke.py's
+    phase 20 runs it; u is the control drawn for the next step."""
+    from nimblephysics_tpu.models import half_cheetah
+
+    from nimblephysics_tpu_torch.convert import world_from_arrays
+    from nimblephysics_tpu_torch.neural import Engine
+
+    jw, q0, v0 = half_cheetah()
+    tw = world_from_arrays(dump_world(jw))
+    rng = np.random.RandomState(seed)
+    q = np.asarray(q0, np.float64).copy()
+    q[1] += rng.uniform(-0.02, 0.02)
+    eng = Engine(tw, device="cpu")
+    us = [tw.action_to_forces(t64(control * rng.randn(tw.action_size)))
+          for _ in range(steps + 1)]
+    s = (t64(q), t64(v0), torch.zeros(eng.num_constraint_rows, **F64))
+    with torch.no_grad():
+        for u in us[:steps]:
+            r = eng.step(s[0], s[1], u, z_warm=s[2])
+            s = (r.q, r.v, r.impulses)
+    return jw, tw, n(s[0]), n(s[1]), n(us[steps])
+
+
+def ik_mapping_pair(jax_world, port_world, entries):
+    """(JAX IKMapping, port IKMapping) holding the same (kind, body)
+    entries, kind one of "spatial", "linear", "angular"."""
+    from nimblephysics_tpu.neural.mappings import IKMapping as JaxIK
+
+    from nimblephysics_tpu_torch.neural.mappings import IKMapping
+
+    pair = (JaxIK(jax_world), IKMapping(port_world))
+    for kind, b in entries:
+        for m in pair:
+            getattr(m, f"add_{kind}_body_node")(b)
+    return pair
