@@ -103,10 +103,31 @@ Phases (any failure exits non-zero and prints no result line):
      the card; box_drop's state Jacobian against Ridders FD stepped on
      the card; float32 card vs CPU (printed); ms and CUDA launches of the
      forward pass, each Jacobian and backprop_state; no seed launch;
+ 22. the half-cheetah on a heightmap (terrain_cheetah: the model's ground
+     plane replaced by 64 x 64 cells of 0.1 m, bumps up to 3 cm from the
+     seed), the default SolverConfig, 4096 worlds, float32: 100 warm-up
+     and 100 timed steps from bench.py's start lifted by the highest
+     bump (env-steps/s, one K1b launch a step, never the plain seed, CUDA
+     launches a step); K1 and K1b on the terrain LCP (n = 84, r = 9, the
+     narrow tier) against the plain version in float64 with a dropped
+     contact that must miss the limits, and the same on the settled LCP;
+     one step from the settled state on every world (step_check): the
+     card's LCP residual on the CPU's float64 LCP against the CPU
+     float32 step's, and its v against the CPU's float64 update by its
+     impulses, with planted faults (the gaps in z and v to the CPU's
+     float32 step printed); one train_step_batched at 4096 worlds x horizon 20, and its policy
+     gradient at 64 worlds card f32 vs CPU f64;
+ 23. at 1024 worlds, card vs CPU as phase 22's step_check: the cube
+     mesh on the ground, a cube mesh on a slab under an octahedron mesh,
+     a sphere, a capsule, a box and a sphere set on a sloped heightmap
+     (one K1b launch a step each), the spline-driven custom joint and the
+     four biomechanics joints; the single-world step in float64 on a heightmap
+     and on the custom joint, card vs CPU; a state Jacobian across a live
+     heightmap contact against Ridders FD on the card;
   then a JSON line per kernel and, last, {"ok": true, "device": ...}.
 
-`python3 chip_smoke.py --only 9,18,19,20,21` runs phases 1-2 and the
-listed ones of 9, 18, 19, 20 and 21, and prints no result line (for
+`python3 chip_smoke.py --only 9,18,19,20,21,22,23` runs phases 1-2 and
+the listed ones of 9 and 18 to 23, and prints no result line (for
 iterating on them).
 
 Matmuls run in full float32: TF32 is switched off for matmuls and cuDNN,
@@ -755,7 +776,7 @@ def box_cases(dev):
 
 
 def engine_lcp_check(phase, label, meta, F, b, mu, zw, report, fault=None,
-                     gram_fault=False):
+                     gram_fault=False, ref64=False):
     """K1 and K1b on one of the engine's own LCPs against their plain
     versions, from its warm start zw and cold (a rollout's first step):
     errors, times, bounds and the launch plan; with fault = (what, fn),
@@ -766,7 +787,11 @@ def engine_lcp_check(phase, label, meta, F, b, mu, zw, report, fault=None,
     sweep fewer moves it ~1e-9), so the faults change the LCP itself.
     With gram_fault, K1b is also held against the wide tier's blocked
     polish with one in-block Gram term dropped (dropped_gram), from the
-    warm and the cold start: the larger must miss PGS_TOL.
+    warm and the cold start: the larger must miss PGS_TOL. With ref64,
+    the plain versions (and the fault's) run in float64 on the same
+    inputs, and the kernel is held against them: on an LCP whose z is not
+    unique two float32 evaluations part by their own rounding
+    (compare_seed_kernel.py --terrain prints the float32 gaps).
     Returns {"n", "r", "B", "impulse_max", "k1": {...}, "k1b": {...}}."""
     from nimblephysics_tpu_torch.batched import lcp_cuda
 
@@ -777,22 +802,23 @@ def engine_lcp_check(phase, label, meta, F, b, mu, zw, report, fault=None,
     plan = lcp_cuda.seed_plan(n, r, lcp_cuda.smem_limit(F.device.index))
     row = {"n": n, "r": r, "B": B}
     errs = {}
+    ref = (lambda x: x.double()) if ref64 else (lambda x: x)
     for start, z0 in (("warm", zw), ("cold", torch.zeros_like(zw))):
         z1 = lcp_cuda.apgd_cuda(meta, F, b, mu, z0)
-        p1 = lcp_cuda.apgd_plain(meta, F, 0.0, b, mu, z0)
+        p1 = lcp_cuda.apgd_plain(meta, ref(F), 0.0, ref(b), ref(mu), ref(z0))
         z2 = lcp_cuda.apgd_cuda(meta, F, b, mu, z0, pgs_sweeps=sweeps)
-        p2 = lcp_cuda.pgs_plain(meta, F, 0.0, b, mu, p1, sweeps=sweeps)
+        p2 = lcp_cuda.pgs_plain(meta, ref(F), 0.0, ref(b), ref(mu), p1, sweeps=sweeps)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(z1).all() and torch.isfinite(z2).all()),
               f"{label}: kernel output not finite ({start})")
-        errs["k1", start], errs["k1b", start] = rel_err(z1, p1), rel_err(z2, p2)
+        errs["k1", start], errs["k1b", start] = rel_err(ref(z1), p1), rel_err(ref(z2), p2)
         if gram_fault:
             errs["gram", start] = rel_err(z2, dropped_gram(meta, F, b, mu, p1, sweeps))[1]
         if start == "warm":
             row["impulse_max"] = float(p2.abs().max())
             if fault:
-                d1, d2 = fault[1](meta, F, b, mu, z0, p2)
-                faults = (rel_err(z1, d1)[1], rel_err(z2, d2)[1])
+                d1, d2 = fault[1](meta, ref(F), ref(b), ref(mu), ref(z0), p2)
+                faults = (rel_err(ref(z1), d1)[1], rel_err(ref(z2), d2)[1])
     for key, sw, tol in (("k1", 0, KERNEL_TOL), ("k1b", sweeps, PGS_TOL)):
         ms = cuda_ms(lambda: lcp_cuda.apgd_cuda(meta, F, b, mu, zw, pgs_sweeps=sw), 20)
         plain = ((lambda: lcp_cuda.seed_plain(meta, F, 0.0, b, mu, zw)) if sw
@@ -805,10 +831,11 @@ def engine_lcp_check(phase, label, meta, F, b, mu, zw, report, fault=None,
         row[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                         max_abs_err=max(wa, ca), rel=max(wr, cr))
         print(f"{phase} ({label}, {'K1b' if sw else 'K1 '}): n={n} r={r} B={B}: "
-              f"vs plain, max|dz| and max|dz|/(1+max|z|): warm start {wa:.3e}, "
-              f"{wr:.3e}; cold {ca:.3e}, {cr:.3e} (tol {tol:g}); {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); {plan_words(plan, sw > 0)}, "
-              f"{warps} resident warps/SM, {regs} registers, {spill} bytes spilled")
+              f"vs plain{' float64' if ref64 else ''}, max|dz| and max|dz|/(1+max|z|): "
+              f"warm start {wa:.3e}, {wr:.3e}; cold {ca:.3e}, {cr:.3e} (tol {tol:g}); "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
+              f"{plan_words(plan, sw > 0)}, {warps} resident warps/SM, {regs} registers, "
+              f"{spill} bytes spilled")
         check(max(wr, cr) <= tol,
               f"{label}: {'K1b' if sw else 'K1'} disagrees with its plain version")
     print(f"{phase} ({label}): the engine's max|z| {row['impulse_max']:.4e}")
@@ -911,6 +938,14 @@ def phase10(dev):
     return out
 
 
+def _card_seed_plain(meta, F, b, mu, z0, cfm=0.0, z_kernel=None):
+    """The card's seed on the CPU: the plain seed plus the
+    projected-gradient step the card re-attaches to the kernel's output."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    return lcp_cuda.pgd_step(meta, F, cfm, b, mu, lcp_cuda.seed_plain(meta, F, cfm, b, mu, z0))
+
+
 def card_vs_cpu(world, state, worlds, body=None):
     """One step of the first `worlds` worlds on the card against the CPU
     float64 path (the port's own) and the CPU float32 path with the
@@ -927,15 +962,12 @@ def card_vs_cpu(world, state, worlds, body=None):
             k: torch.as_tensor(x[..., :worlds], dtype=dtype, device=device)
             for k, x in body.items()}
 
-    def card_seed_plain(meta, F, b, mu, z0, cfm=0.0, z_kernel=None):
-        return lcp_cuda.pgd_step(meta, F, cfm, b, mu, lcp_cuda.seed_plain(meta, F, cfm, b, mu, z0))
-
     g = eng.step(q, v, u, z_warm=z, body_params=bp(q.device, q.dtype))
     gq, gv = g.q.double().cpu(), g.v.double().cpu()
     cpu64 = BatchedEngine(world, device="cpu", dtype=torch.float64)
     a64 = [x.double().cpu() for x in (q, v, u, z)]
     c64 = cpu64.step(*a64[:3], z_warm=a64[3], body_params=bp("cpu", torch.float64))
-    with mock.patch.object(lcp_cuda, "apgd_seed", card_seed_plain):
+    with mock.patch.object(lcp_cuda, "apgd_seed", _card_seed_plain):
         c32 = BatchedEngine(world, device="cpu", dtype=torch.float32).step(
             *(x.cpu() for x in (q, v, u)), z_warm=z.cpu(),
             body_params=bp("cpu", torch.float32))
@@ -950,6 +982,96 @@ def card_vs_cpu(world, state, worlds, body=None):
                     / (1.0 + c32.v.double().abs().amax(dim=0))).max()),
         dv64=dv64, dv_cpu=dv_cpu,
     )
+
+
+def _world_rel(a, b):
+    """Per world max|a - b| over 1 + max|b| ((n, B) -> (B,)); zeros for
+    an empty a."""
+    if not a.numel():
+        return a.new_zeros(a.shape[-1])
+    return (a - b).abs().amax(dim=0) / (1.0 + b.abs().amax(dim=0))
+
+
+def step_residual(eng, prob, z):
+    """Per world (B,), the natural-map residual (lcp_residual) of the
+    impulses z (n, B) on the LCP(s) that `eng` solves for `prob`; zeros
+    for a world with no rows."""
+    if eng.num_rows == 0:
+        return prob.b.new_zeros(prob.b.shape[-1])
+    blocks, _ = eng.lcp_blocks(prob, z)
+    return torch.stack([lcp_residual(meta, F, b, mu, zb)
+                        for meta, F, b, mu, zb in blocks]).amax(dim=0)
+
+
+def drop_loaded_contact(eng, z):
+    """The impulses z (n, B) with each world's most loaded contact (its
+    normal and two friction rows) zeroed: what a step that lost a contact
+    would give."""
+    C = eng.bcollider.num_contacts
+    k = torch.argmax(z[0:3 * C:3], dim=0)
+    out = z.clone()
+    for i in range(3):
+        out.scatter_(0, (3 * k + i)[None], 0.0)
+    return out
+
+
+def step_check(phase, label, world, eng, q, v, z, u, dz_lim, dv_lim):
+    """One step of every world on the card, held world by world on what
+    stays unique where A = F F^T is rank-deficient and z is not: the
+    natural-map residual of the card's impulses on the LCP the CPU builds
+    in float64 from the same inputs, at most RES_SAME above that of the
+    CPU's own float32 step with the card's seed; and the card's v within
+    dv_lim (over 1 + max|v|) of the CPU's float64 velocity update by the
+    card's impulses. Planted faults, where the scene has contact
+    impulses: the card's impulses with each world's most loaded contact
+    dropped, and its v before the impulse update, must each miss. Prints
+    beside the gaps in z and v to the CPU's float32 step against dz_lim
+    and dv_lim (held nowhere: several z solve these LCPs). Returns the
+    world farthest from the CPU's float32 step in those gaps."""
+    from nimblephysics_tpu_torch.batched import BatchedEngine
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    with torch.no_grad():
+        g = eng.step(q, v, u, z_warm=z)
+        cpu64 = BatchedEngine(world, device="cpu", dtype=torch.float64)
+        x64 = [t.detach().cpu().double() for t in (q, v, u)]
+        prob = cpu64.lcp_problem(*x64)
+        with mock.patch.object(lcp_cuda, "apgd_seed", _card_seed_plain):
+            c32 = BatchedEngine(world, device="cpu", dtype=torch.float32).step(
+                *(t.cpu() for t in (q, v, u)), z_warm=None if z is None else z.cpu())
+        gz, gv = g.impulses.cpu().double(), g.v.cpu().double()
+        res_cpu = step_residual(cpu64, prob, c32.impulses.double())
+        excess = step_residual(cpu64, prob, gz) - res_cpu
+        v_ref = cpu64._finish(x64[0], x64[1], prob, gz).v
+        dv = _world_rel(gv, v_ref)
+        dz_free, dv_free = _world_rel(gz, c32.impulses.double()), _world_rel(gv, c32.v.double())
+    active = int((gz.abs().amax(dim=0) > 0).sum()) if gz.numel() else 0
+    we, wv = int(torch.argmax(excess)), int(torch.argmax(dv))
+    worst = int(torch.argmax(torch.maximum(dz_free / dz_lim, dv_free / dv_lim)))
+    print(f"{phase} ({label}): one step, {q.shape[1]} worlds ({active} with impulses), card "
+          f"vs CPU: the card's LCP residual on the CPU's float64 LCP less the CPU float32 "
+          f"step's, max {float(excess.max()):.3e} (world {we}; bound {RES_SAME:.3e}); the "
+          f"card's v vs the CPU float64 update by the card's impulses, max|dv|/(1+max|v|) "
+          f"{float(dv.max()):.3e} (world {wv}; bound {dv_lim:g})")
+    print(f"{phase} ({label}, printed, not held): card vs CPU float32 step, "
+          f"max|dz|/(1+max|z|) {float(dz_free.max()):.3e}, max|dv|/(1+max|v|) "
+          f"{float(dv_free.max()):.3e}; worlds beyond {dz_lim:g} or {dv_lim:g}: "
+          f"{int(((dz_free > dz_lim) | (dv_free > dv_lim)).sum())}; the worst, world {worst}: "
+          f"dz {float(dz_free[worst]):.3e}, dv {float(dv_free[worst]):.3e}")
+    check(bool((excess <= RES_SAME).all()) and bool((dv <= dv_lim).all()),
+          f"{label}: a world's card step is beyond the limits")
+    if active and cpu64.bcollider.num_contacts:
+        with torch.no_grad():
+            f_res = step_residual(cpu64, prob, drop_loaded_contact(cpu64, gz)) - res_cpu
+            f_dv = _world_rel(g.v_pre.cpu().double(), v_ref)
+        print(f"{phase} ({label}): planted faults: the most loaded contact dropped, residual "
+              f"excess max {float(f_res.max()):.3e}, beyond {RES_SAME:.3e} in "
+              f"{int((f_res > RES_SAME).sum())} worlds; v before the impulse update, max|dv|/"
+              f"(1+max|v|) {float(f_dv.max()):.3e}, beyond {dv_lim:g} in "
+              f"{int((f_dv > dv_lim).sum())} worlds")
+        check(bool((f_res > RES_SAME).any()) and bool((f_dv > dv_lim).any()),
+              f"{label}: the limits cannot tell a planted fault")
+    return worst
 
 
 def phase11(dev, legs):
@@ -2001,6 +2123,8 @@ def sw_compare(card, cpu):
     """(dq, dv, dz), each over 1 + max|.| of the CPU step."""
     def rel(a, b):
         b = b.detach().cpu().double()
+        if not b.numel():  # a world with no rows
+            return 0.0
         return float((a.detach().cpu().double() - b).abs().max() / (1.0 + b.abs().max()))
 
     return rel(card.q, cpu.q), rel(card.v, cpu.v), rel(card.impulses, cpu.impulses)
@@ -2384,6 +2508,406 @@ def phase21(dev, smi):
           f"launch; {time.perf_counter() - t0:.1f} s")
 
 
+# -- terrain, convex meshes, sphere sets and spline joints (22-23) ----------
+
+# Phase 22's terrain: 64 x 64 cells of 0.1 m, heights uniform in [0, 3 cm]
+# from the seed. Phase 22 holds K1b to phase 3/6's KERNEL_TOL / PGS_TOL on
+# the terrain LCPs, the card step to phase 5's DZ_SAME / DV_SAME on every
+# world, and the horizon-20 gradient to phase 8's GRAD_COS / GRAD_REL;
+# phase 23 holds its batched scenes to phase 17's SLICE_DZ_SAME /
+# SLICE_DV_SAME, its single-world steps to phase 20's SW_DQ / SW_DV /
+# SW_DZ and its state Jacobian to phase 21's SNAP_FD. Set before any
+# reading of these phases.
+TERRAIN_CELLS = 64
+TERRAIN_SPACING = 0.1
+TERRAIN_BUMP = 0.03
+TERRAIN_HORIZON = 20
+SCENE_BATCH = 1024
+SCENE_STEPS = 20
+# Phases 22-23's one-step checks (step_check) hold, world by world, the
+# card's impulses' natural-map residual on the CPU's float64 LCP to at
+# most RES_SAME above the CPU float32 step's: the engine's own float32
+# tolerance on w (batched/lcp.py::_lcp_valid, 10 max(1e-7, 1000 eps)),
+# over the same scale, 1 + max|b|. Set before any card reading of it;
+# the reading it was sized against is the CPU's own float32 step on
+# 1024 settled terrain worlds, whose residual moves by up to 4.0e-4
+# under one ulp of input noise (PERF.md § 6).
+RES_SAME = 10 * max(1e-7, 1000 * float(np.finfo(np.float32).eps))
+
+
+def terrain_cheetah(seed=SEED + 22):
+    """The half-cheetah on rough terrain: models.half_cheetah() with its
+    ground plane replaced by a heightmap (TERRAIN_CELLS^2 cells of
+    TERRAIN_SPACING, heights uniform in [0, TERRAIN_BUMP] from `seed`),
+    whose frame turns local +z onto the world's +y (the cheetah's gravity
+    is -y) with height 0 on the plane's surface. Returns (world, q0, v0,
+    the highest point)."""
+    from nimblephysics_tpu_torch.dynamics import WELD, ShapeSpec, Skeleton
+    from nimblephysics_tpu_torch.models import half_cheetah
+
+    world, q0, v0 = half_cheetah()
+    old = world.skeletons[0]
+    plane = old.bodies[0].shapes[0]
+    heights = TERRAIN_BUMP * np.random.RandomState(seed).rand(TERRAIN_CELLS + 1,
+                                                              TERRAIN_CELLS + 1)
+    T = np.eye(4)
+    T[:3, :3] = [[1.0, 0.0, 0.0], [0.0, 0.0, 1.0], [0.0, -1.0, 0.0]]
+    T[1, 3] = float(plane.size[3])  # the plane's surface, in the ground body's frame
+    ground = Skeleton("ground")
+    ground.add_joint_and_body(
+        WELD, name="ground", T_pj=old.joints[0].T_pj, mass=old.bodies[0].mass,
+        shapes=(ShapeSpec("heightmap", np.array([TERRAIN_SPACING, TERRAIN_SPACING, 1.0]),
+                          T_offset=T, friction=plane.friction, restitution=plane.restitution,
+                          heights=heights),))
+    world.skeletons[0] = ground
+    return world, q0, v0, float(heights.max())
+
+
+def make_terrain_engine(dev, dtype=torch.float32):
+    """The terrain half-cheetah under the default SolverConfig, with
+    bench.py's start lifted by the terrain's highest point: (world, q0,
+    v0, engine)."""
+    from nimblephysics_tpu_torch.batched import BatchedEngine
+    from nimblephysics_tpu_torch.simulation import SolverConfig
+
+    world, q0, v0, top = terrain_cheetah()
+    world.solver = SolverConfig()
+    q0 = q0.copy()
+    q0[1] += top
+    return world, q0, v0, BatchedEngine(world, device=dev, dtype=dtype)
+
+
+def terrain_grads(dev):
+    """The policy gradient of one train_step_batched (GRAD_WORLDS worlds,
+    horizon TERRAIN_HORIZON) on the terrain, card f32 and CPU f64, from
+    the same start and weights."""
+    from nimblephysics_tpu_torch.convert import policy_from_arrays
+    from nimblephysics_tpu_torch.parallel import train_step_batched
+
+    grads = {}
+    for label, d, dtype in (("card", dev, torch.float32),
+                            ("cpu", torch.device("cpu"), torch.float64)):
+        _, q0, v0, eng = make_terrain_engine(d, dtype)
+        states, weights = train_start(q0, v0, np.random.RandomState(SEED + 222), d,
+                                      GRAD_WORLDS, dtype)
+        policy = policy_from_arrays(*weights, device=d, dtype=dtype)
+        train_step_batched(eng, policy, TERRAIN_HORIZON, 0.0)(states)
+        grads[label] = policy_grad(policy).double().cpu()
+    return grads["card"], grads["cpu"]
+
+
+def terrain_edge_distance(eng, q):
+    """The smallest distance, over the live contacts of one terrain world
+    q (nv, 1), of a contact's sample point (its sphere's centre, in the
+    heightmap's frame) to a grid line across x: where the bilinear patch
+    normal jumps as the cheetah moves. (The planar cheetah lies on the
+    grid line y = 0 itself, at exactly gy = 32 on every device.)"""
+    from nimblephysics_tpu_torch.batched.articulated import fk
+
+    R, p, *_ = fk(eng.fw, q)
+    pts, nrm, dep = (x[..., 0].double().cpu() for x in eng.bcollider.collide(R, p, 1))
+    centres = pts + nrm * (0.046 - 0.5 * dep)[:, None]  # the cheetah's capsule radius
+    # Heightmap frame: x = world x; grid lines every spacing.
+    g = centres[:, 0] / TERRAIN_SPACING
+    d = (g - torch.round(g)).abs() * TERRAIN_SPACING
+    live = dep > 0
+    return float(d[live].min()) if bool(live.any()) else float("nan")
+
+
+def terrain_lcp(eng, q0, dev):
+    """The terrain engine's LCP as phase 6 takes the ground's: one step
+    from a seeded state with the feet in the terrain, warm-started from
+    that step's impulses: (meta, F, b, mu, z_warm)."""
+    rs = np.random.RandomState(SEED + 223)
+    q = np.tile(q0[:, None], (1, BATCH)) + 0.02 * rs.randn(len(q0), BATCH)
+    q[1] -= 0.27
+    uu = eng.action_to_forces(_on(dev, 0.5 * rs.randn(eng.world.action_size, BATCH)))
+    first = eng.step(_on(dev, q), _on(dev, 0.3 * rs.randn(len(q0), BATCH)), uu)
+    return eng.lcp_blocks(eng.lcp_problem(first.q, first.v, uu), first.impulses)[0][0]
+
+
+def phase22(dev, report):
+    """The half-cheetah on a heightmap at BATCH worlds (module docstring).
+    Returns K1b's kernels-line entry on the terrain LCP."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+    from nimblephysics_tpu_torch.convert import policy_from_arrays
+    from nimblephysics_tpu_torch.parallel import train_step_batched
+
+    t0 = time.perf_counter()
+    world, q0, v0, eng = make_terrain_engine(dev)
+    kinds = [s.kind for s in eng.collider.slots]
+    check(kinds == ["capsule_heightmap"] * 8 and eng.num_rows == 84,
+          f"terrain plan: {kinds}, {eng.num_rows} rows")
+    rng = np.random.RandomState(SEED + 220)
+    carry, u = rollout_start(eng, q0, v0, rng, dev)
+    with mock.patch.object(lcp_cuda, "seed_plain", _forbidden), \
+            mock.patch.object(lcp_cuda, "apgd_plain", _forbidden):
+        carry, launches = timed_rollout(eng, carry, u, "phase 22 (terrain)")
+    qf, vf, zf = carry
+    per_step = count_launches(lambda: eng.step(qf, vf, u, z_warm=zf))
+    print(f"phase 22 (terrain): CUDA kernel launches per step {per_step}; K1b launches "
+          f"{launches} in {STEPS} steps; LCP n={eng.num_rows} r={world.num_dofs}")
+    meta, F, b, mu, zw = terrain_lcp(eng, q0, dev)
+    plan = lcp_cuda.seed_plan(F.shape[0], F.shape[1], lcp_cuda.smem_limit(F.device.index))
+    check(plan.tier != "wide", "the terrain LCP took the wide tier")
+    row = engine_lcp_check("phase 22", "terrain", meta, F, b, mu, zw, report,
+                           ("a dropped contact", dropped_contact), ref64=True)
+    # The same on the rollout's settled LCP, warm-started from its impulses.
+    engine_lcp_check("phase 22", "terrain, settled", *eng.lcp_blocks(
+        eng.lcp_problem(qf, vf, u), zf)[0][0], report, ref64=True)
+    w = step_check("phase 22", "terrain", world, eng, qf, vf, zf, u, DZ_SAME, DV_SAME)
+    print(f"phase 22 (terrain): world {w}'s live contacts' sample points lie "
+          f"{terrain_edge_distance(eng, qf[:, w:w + 1]):.3e} m from a grid line across x")
+    states, weights = train_start(q0, v0, np.random.RandomState(SEED + 221), dev)
+    policy = policy_from_arrays(*weights, device=dev)
+    train = train_step_batched(eng, policy, TERRAIN_HORIZON, LEARNING_RATE)
+    torch.cuda.synchronize()
+    lcp_cuda.apgd_seed.launches = 0
+    t1 = time.perf_counter()
+    res = train(states)
+    torch.cuda.synchronize()
+    dt_s = time.perf_counter() - t1
+    check(lcp_cuda.apgd_seed.launches == TERRAIN_HORIZON,
+          f"K1b launched {lcp_cuda.apgd_seed.launches} times in a training step")
+    check(bool(torch.isfinite(res.loss)) and bool(torch.isfinite(policy_grad(policy)).all()),
+          "terrain training loss or gradient not finite")
+    g, cg = terrain_grads(dev)
+    cos, rel = cosine(g, cg), float((g - cg).norm() / cg.norm())
+    print(f"phase 22 (terrain): train_step_batched {BATCH} worlds x horizon "
+          f"{TERRAIN_HORIZON} (first call): {dt_s:.3f} s, {BATCH * TERRAIN_HORIZON / dt_s:.1f} "
+          f"fwd+bwd env-steps/s; policy gradient at {GRAD_WORLDS} worlds, card f32 vs CPU "
+          f"f64: cosine {cos:.8f} (bound {GRAD_COS:g}), |dg|/|g| {rel:.3e} (bound "
+          f"{GRAD_REL:g}), |g| {float(cg.norm()):.4e}")
+    check(cos >= GRAD_COS and rel <= GRAD_REL, "terrain: card policy gradient far from the CPU's")
+    print(f"phase 22: {time.perf_counter() - t0:.1f} s")
+    k = row["k1b"]
+    return {"name": "apgd_seed_pgs/terrain", "route": "cuda",
+            "source": "nimblephysics_tpu_torch/csrc/apgd_seed.cu",
+            "replaces": "nimblephysics_tpu/batched/lcp_pallas.py:118", "launches": launches,
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None}
+
+
+def _cube_verts(h=0.1):
+    return np.array([[sx, sy, sz] for sx in (-h, h) for sy in (-h, h) for sz in (-h, h)])
+
+
+def _octahedron(r=0.1):
+    return r * np.array([[1.0, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1]])
+
+
+def _free_shape(name, shape, inertia=0.002):
+    """A free unit-mass body carrying `shape`."""
+    from nimblephysics_tpu_torch.dynamics import FREE, Skeleton
+
+    sk = Skeleton(name)
+    sk.add_joint_and_body(FREE, name=name, mass=1.0, inertia=np.eye(3) * inertia,
+                          shapes=(shape,))
+    return sk
+
+
+def _slope_hm():
+    """tests/test_terrain.py's sloped heightmap, height 0.3 x on 9 x 9
+    points of 0.25 m, as a welded ground."""
+    from nimblephysics_tpu_torch.dynamics import WELD, ShapeSpec, Skeleton
+
+    sk = Skeleton("terrain")
+    sk.add_joint_and_body(WELD, name="hm", mass=1.0, shapes=(ShapeSpec(
+        "heightmap", np.array([0.25, 0.25, 1.0]), friction=0.8,
+        heights=np.tile(0.3 * np.linspace(-1, 1, 9), (9, 1))),))
+    return sk
+
+
+def contact_scenes():
+    """Phase 23's contact scenes, with the port's API: tests/
+    test_mesh_collision.py's cube mesh on the ground and cube mesh on a
+    slab under an octahedron mesh (mesh_plane, box_mesh, mesh_mesh), and
+    tests/test_terrain.py's sphere, capsule, box and sphere-set bodies on
+    its sloped heightmap. (label, world, start(rng, worlds) -> q (nv,
+    worlds) numpy): each body a hair into contact, jittered by 5 mm in x
+    and 0.05 rad."""
+    from nimblephysics_tpu_torch.dynamics import WELD, ShapeSpec, Skeleton
+
+    def mesh(name, verts):
+        return _free_shape(name, ShapeSpec("mesh", np.zeros(1), mesh_vertices=verts))
+
+    slab = Skeleton("table")
+    slab.add_joint_and_body(WELD, name="slab", mass=1.0,
+                            shapes=(ShapeSpec("box", np.array([1.0, 1.0, 0.2])),))
+
+    def placed(z_of, bodies=1):
+        def start(rng, worlds):
+            q = np.zeros((6 * bodies, worlds))
+            for i in range(bodies):
+                q[6 * i:6 * i + 3] = 0.05 * rng.randn(3, worlds)
+                q[6 * i + 3] = 5e-3 * rng.randn(worlds)
+                q[6 * i + 5] = z_of(i, q[6 * i + 3])
+            return q
+        return start
+
+    c = np.sqrt(1.0 + 0.3**2)  # a point at height gap g over the slope is g / c off it
+    ms = np.array([[-0.1, 0.0, 0.0, 0.05], [0.1, 0.0, 0.0, 0.05]])
+    return [
+        ("mesh_plane", sw_world(_ground(), mesh("cube", _cube_verts())),
+         placed(lambda i, x: 0.1 - 1e-3)),
+        ("mesh_box_mesh", sw_world(slab, mesh("m1", _cube_verts()), mesh("m2", _octahedron())),
+         placed(lambda i, x: (0.2, 0.4)[i] - 1e-3, bodies=2)),
+        ("sphere_heightmap", sw_world(_slope_hm(), _free_shape(
+            "ball", ShapeSpec("sphere", np.array([0.1]), friction=0.8), 0.004)),
+         placed(lambda i, x: 0.3 * x + 0.1 * c - 1e-3)),
+        ("capsule_heightmap", sw_world(_slope_hm(), _free_shape(
+            "capsule", ShapeSpec("capsule", np.array([0.05, 0.2]), friction=0.8))),
+         placed(lambda i, x: 0.3 * x + 0.1 + 0.05 * c - 1e-3)),
+        ("box_heightmap", sw_world(_slope_hm(), _free_shape(
+            "box", ShapeSpec("box", np.array([0.1, 0.2, 0.1]), friction=0.8))),
+         placed(lambda i, x: 0.3 * (x + 0.05) + 0.05 - 1e-3)),
+        ("multisphere_heightmap", sw_world(_slope_hm(), _free_shape(
+            "dumbbell", ShapeSpec("multisphere", np.zeros(1), friction=0.8, spheres=ms))),
+         placed(lambda i, x: 0.3 * (x + 0.1) + 0.05 * c - 1e-3)),
+    ]
+
+
+def custom_skeleton():
+    """tests/test_batched.py's spline-driven custom joint: rotation x = q0,
+    rotation y = a natural spline of q1, translation x = 0.2 q0, y =
+    0.05."""
+    from nimblephysics_tpu_torch.dynamics import CUSTOM, CustomJointDef, Skeleton
+    from nimblephysics_tpu_torch.math import splines
+
+    xs = np.linspace(-1.5, 1.5, 7)
+    cj = CustomJointDef(
+        n_dofs=2, rot_axes=np.eye(3), trans_axes=np.eye(3),
+        functions=(splines.linear(1.0, 0.0), splines.simm_spline(xs, 0.3 * np.sin(xs)),
+                   splines.constant(0.0), splines.linear(0.2, 0.0),
+                   splines.constant(0.05), splines.constant(0.0)),
+        drives=(0, 1, -1, 0, -1, -1))
+    sk = Skeleton("osimish")
+    sk.add_joint_and_body(CUSTOM, name="seg", custom=cj, mass=1.1, inertia=np.eye(3) * 0.02)
+    return sk
+
+
+# tests/test_batched.py's BIOMECH_TYPES.
+BIOMECH_TYPES = (
+    ("ellipsoid", {"radii": (0.07, 0.05, 0.09)}),
+    ("scapulathoracic", {"radii": (0.07, 0.05, 0.09), "winging_axis_offset": (0.02, -0.01),
+                         "winging_axis_direction": 0.4}),
+    ("constantcurve", {"neutral": (0.0, 0.0, 0.0, 0.3)}),
+    ("constantcurveincompressible", {"length": 0.35, "neutral": (0.05, 0.0, -0.02)}),
+)
+
+
+def biomech_skeleton(jt, props):
+    """tests/test_batched.py's biomechanics world: the joint under a body,
+    with a revolute tip hung off it."""
+    from nimblephysics_tpu_torch.dynamics import REVOLUTE, Skeleton
+
+    sk = Skeleton(f"bio_{jt}")
+    a = sk.add_joint_and_body(jt, name="seg", props=props, mass=1.5, com=(0.0, 0.05, 0.0),
+                              inertia=np.eye(3) * 0.01)
+    sk.add_joint_and_body(REVOLUTE, parent=a, name="tip", axis=(0, 0, 1),
+                          T_pj=_translation((0.05, 0.1, 0.0)), mass=0.4,
+                          inertia=np.eye(3) * 0.005)
+    return sk
+
+
+def joint_scenes():
+    """(label, world) of phase 23's joint scenes: the custom joint under
+    gravity -z, each biomechanics joint under gravity -y."""
+    out = [("custom", sw_world(custom_skeleton()))]
+    for jt, props in BIOMECH_TYPES:
+        out.append((jt, sw_world(biomech_skeleton(jt, props), gravity=(0.0, -9.81, 0.0))))
+    return out
+
+
+def terrain_probe():
+    """tests/test_terrain.py's heightmap-gradient world: a sphere falling
+    at 0.3 m/s onto 6 x 6 heights 0.05 N(0, 1) of 0.5 m, here 2 mm into
+    the terrain (over the origin, the middle of a cell, the bilinear
+    height is the mean of its corners): (world, state (12,), action (6,))
+    as numpy."""
+    from nimblephysics_tpu_torch.dynamics import WELD, ShapeSpec, Skeleton
+
+    heights = 0.05 * np.random.RandomState(0).randn(6, 6)
+    ground = Skeleton("terrain")
+    ground.add_joint_and_body(WELD, name="hm", mass=1.0, shapes=(ShapeSpec(
+        "heightmap", np.array([0.5, 0.5, 1.0]), friction=0.8, heights=heights),))
+    world = sw_world(ground, _free_shape("ball", ShapeSpec(
+        "sphere", np.array([0.1]), friction=0.8), 0.004))
+    state = np.zeros(12)
+    state[5], state[11] = float(heights[2:4, 2:4].mean()) + 0.1 - 2e-3, -0.3
+    return world, state, np.zeros(6)
+
+
+def phase23(dev):
+    """The meshes, terrain, sphere sets and spline-driven joints at
+    SCENE_BATCH worlds, card against the CPU; the single world on the
+    card in float64 (module docstring)."""
+    from nimblephysics_tpu_torch.batched import BatchedEngine
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+    from nimblephysics_tpu_torch.neural import Engine, forward_pass
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED + 230)
+    for label, world, start in contact_scenes():
+        eng = BatchedEngine(world, device=dev)
+        q = _on(dev, start(rng, SCENE_BATCH))
+        v = _on(dev, 0.05 * rng.randn(world.num_dofs, SCENE_BATCH))
+        u = torch.zeros_like(q)
+        z = torch.zeros(eng.num_rows, SCENE_BATCH, device=dev)
+        torch.cuda.synchronize()
+        lcp_cuda.apgd_seed.launches = 0
+        with mock.patch.object(lcp_cuda, "seed_plain", _forbidden), \
+                mock.patch.object(lcp_cuda, "apgd_plain", _forbidden):
+            q, v, z = rollout(eng, (q, v, z), u, SCENE_STEPS)
+            torch.cuda.synchronize()
+        launches = lcp_cuda.apgd_seed.launches
+        active = int((z.abs().amax(dim=0) > 0).sum())
+        kinds = sorted({s.kind for s in eng.collider.slots})
+        print(f"phase 23 ({label}): {kinds}, LCP n={eng.num_rows}; {SCENE_STEPS} steps x "
+              f"{SCENE_BATCH} worlds: K1b launches {launches}; worlds with impulses {active}")
+        check(launches == SCENE_STEPS, f"{label}: K1b launched {launches} times")
+        check(active > 0 and all(bool(torch.isfinite(x).all()) for x in (q, v, z)),
+              f"{label}: no contact or a state not finite")
+        step_check("phase 23", label, world, eng, q, v, z, u, SLICE_DZ_SAME, SLICE_DV_SAME)
+    for label, world in joint_scenes():
+        # tests/test_batched.py's draws (q, v 0.3 N(0, 1), control 0.1 N(0,
+        # 1)): the constant-curve joints' S is infinite at a 90 degree bend
+        # (asin at 1), in the JAX package as here.
+        eng = BatchedEngine(world, device=dev)
+        x = [_on(dev, s * rng.randn(world.num_dofs, SCENE_BATCH)) for s in (0.3, 0.3, 0.1)]
+        q, v, _ = rollout(eng, (x[0], x[1], None), x[2], SCENE_STEPS)
+        check(bool(torch.isfinite(q).all() and torch.isfinite(v).all()), f"{label}: not finite")
+        step_check("phase 23", label, world, eng, q, v, None, x[2], SLICE_DZ_SAME,
+                   SLICE_DV_SAME)
+    # The single world in float64 on the card against the CPU.
+    world, state, action = terrain_probe()
+    cw = sw_world(custom_skeleton())
+    cx = np.random.RandomState(SEED + 231).randn(3, 2)
+    for label, w, s, a in (("terrain", world, state, action),
+                           ("custom", cw, np.concatenate(cx[:2]), cx[2])):
+        nv = w.num_dofs
+        cpu = Engine(w, device="cpu").step(*sw_on("cpu", torch.as_tensor(s).split(nv)),
+                                           torch.as_tensor(a))
+        card = Engine(w, device=dev).step(*sw_on(dev, torch.as_tensor(s).split(nv)),
+                                          torch.as_tensor(a, device=dev))
+        dq, dv, dz = sw_compare(card, cpu)
+        print(f"phase 23 (single world, {label}): card vs CPU float64: |dq| {dq:.3e} (bound "
+              f"{SW_DQ:g}), |dv| {dv:.3e} (bound {SW_DV:g}), |dz| {dz:.3e} (bound {SW_DZ:g}); "
+              f"max|z| {float(cpu.impulses.abs().max()) if cpu.impulses.numel() else 0.0:.4e}")
+        check(dq <= SW_DQ and dv <= SW_DV and dz <= SW_DZ, f"{label}: card step far from the CPU")
+    snap = forward_pass(world, torch.as_tensor(state, device=dev),
+                        torch.as_tensor(action, device=dev))
+    zmax = float(snap.result.impulses.abs().max())
+    check(zmax > 0, "the heightmap contact is not live")
+    J, fd = snap.get_state_jacobian().cpu().numpy(), snap.finite_difference_state_jacobian()
+    fd_err = float(np.max(np.abs(J - fd) - SNAP_FD * np.abs(fd)))
+    print(f"phase 23: heightmap state Jacobian vs Ridders FD on the card (max|z| "
+          f"{zmax:.4e}): max|dJ| {float(np.abs(J - fd).max()):.3e}, "
+          f"max|dJ| - {SNAP_FD:g}|J_fd| {fd_err:.3e} (bound {SNAP_FD:g})")
+    check(fd_err <= SNAP_FD, "heightmap state Jacobian disagrees with FD on the card")
+    print(f"phase 23: {time.perf_counter() - t0:.1f} s")
+
+
 def wide_kernel_entries(k9, runs):
     """The kernels line's entries for K1b on the 10- and 20-box capped
     LCPs: launches from the phase-18 rollouts, phase 9's numbers."""
@@ -2410,7 +2934,8 @@ def main() -> int:
     only = set()
     if len(sys.argv) > 2 and sys.argv[1] == "--only":
         only = {int(x) for x in sys.argv[2].split(",")}
-        check(only <= {9, 18, 19, 20, 21}, "--only takes phases 9, 18, 19, 20 and 21")
+        check(only <= {9, 18, 19, 20, 21, 22, 23},
+              "--only takes phases 9 and 18 to 23")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2454,6 +2979,10 @@ def main() -> int:
             phase20(dev, smi)
         if 21 in only:
             phase21(dev, smi)
+        if 22 in only:
+            print(json.dumps({"kernels": [phase22(dev, report)]}))
+        if 23 in only:
+            phase23(dev)
         if k9 and runs:
             print(json.dumps({"kernels": wide_kernel_entries(k9, runs)}))
         print(f"chip_smoke: phases 1, 2 and {sorted(only)} passed; no result line "
@@ -2596,6 +3125,10 @@ def main() -> int:
     phase20(dev, smi)
     phase21(dev, smi)
 
+    # 22-23. Terrain, convex meshes, sphere sets and spline-driven joints.
+    terrain = phase22(dev, report)
+    phase23(dev)
+
     kernel = {
         "name": "apgd_seed",
         "route": "cuda",
@@ -2611,7 +3144,7 @@ def main() -> int:
     }
     print(json.dumps({"kernels": [kernel, k1b, *box_kernel_entries(k9, legs, isl),
                                   *slice_kernel_entries(k14, runs),
-                                  *wide_kernel_entries(k9, wide)]}))
+                                  *wide_kernel_entries(k9, wide), terrain]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -29,6 +29,15 @@ staging alone (0 iterations, 0 sweeps: the power iteration still runs) over
 20 launches, in the order parent, this tree's, each --wide-alt (sources
 with this tree's wide interface), and back.
 
+--terrain prints, on chip_smoke phase 22's terrain LCPs (the feet pushed
+into the terrain, and the rollout's settled LCP after 200 steps; n = 84,
+r = 9, 4096 worlds), K1 and K1b from the warm and the cold start against
+the plain version in float32 and in float64, the plain float32 against
+the float64, and the kernel's gaps to the float32 plain version in
+u = F^T z and in the natural-map residual: the readings behind phase
+22's float64 reference (A = F F^T has rank 9 of 84 rows, z is not
+unique). Holds nothing.
+
 Prints one line per timing and, last, a JSON summary. Needs a CUDA device.
 """
 
@@ -235,6 +244,35 @@ def engine_lcp(dev, solver, batch):
                       first.impulses.contiguous())
 
 
+def terrain_readings(dev):
+    """--terrain (module docstring)."""
+    _, q0, v0, eng = chip_smoke.make_terrain_engine(dev)
+    lcps = {"feet in": chip_smoke.terrain_lcp(eng, q0, dev)}
+    rng = np.random.RandomState(chip_smoke.SEED + 220)
+    carry, u = chip_smoke.rollout_start(eng, q0, v0, rng, dev)
+    q, v, z = chip_smoke.rollout(eng, carry, u, 2 * chip_smoke.STEPS)
+    lcps["settled"] = eng.lcp_blocks(eng.lcp_problem(q, v, u), z)[0][0]
+    for label, lcp in lcps.items():
+        meta, F, b, mu, zw = (x.detach().contiguous() if torch.is_tensor(x) else x for x in lcp)
+        sweeps = meta.seed_pgs_sweeps
+        for start, z0 in (("warm", zw), ("cold", torch.zeros_like(zw))):
+            plain = {}
+            for dt in (torch.float32, torch.float64):
+                args = [x.to(dt) for x in (F, b, mu, z0)]
+                p1 = lcp_cuda.apgd_plain(meta, args[0], 0.0, *args[1:])
+                plain[dt] = (p1, lcp_cuda.pgs_plain(meta, args[0], 0.0, *args[1:3], p1,
+                                                    sweeps=sweeps))
+            for k, (form, sw) in enumerate((("K1", 0), ("K1b", sweeps))):
+                got = lcp_cuda.apgd_cuda(meta, F, b, mu, z0, pgs_sweeps=sw)
+                p32, p64 = plain[torch.float32][k], plain[torch.float64][k]
+                du, dres = chip_smoke.unique_parts(meta, F, b, mu, got, p32)
+                print(f"terrain ({label}, {start} start, {form}): max|dz|/(1+max|z|): kernel vs "
+                      f"plain float32 {chip_smoke.rel_err(got, p32)[1]:.3e}, vs plain float64 "
+                      f"{chip_smoke.rel_err(got.double(), p64)[1]:.3e}; plain float32 vs "
+                      f"float64 {chip_smoke.rel_err(p32.double(), p64)[1]:.3e}; kernel vs plain "
+                      f"float32 in u = F^T z {du:.3e}, in the residual {dres:.3e}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", help="source with the one-thread-per-world interface")
@@ -246,6 +284,8 @@ def main() -> int:
     ap.add_argument("--wide-alt", action="append", default=[],
                     help="with --wide-parent: a source with this tree's wide interface "
                          "(repeatable)")
+    ap.add_argument("--terrain", action="store_true",
+                    help="print the kernel's gaps to the plain version on the terrain LCPs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("compare_seed_kernel: no CUDA device", file=sys.stderr)
@@ -257,6 +297,10 @@ def main() -> int:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    if args.terrain:
+        lcp_cuda.build()
+        terrain_readings(dev)
+        return 0
     if args.wide_parent:
         summary = compare_wide(args.wide_parent, args.wide_alt)
         print(json.dumps({"gpu": torch.cuda.get_device_name(0), "wide_ms": summary}))

@@ -1,14 +1,19 @@
 """Batched articulated-body kinematics and dynamics over a flattened world.
 
 Counterpart of nimblephysics_tpu/batched/articulated.py for every joint
-type of its batched engine but the spline-driven ones:
+type of its batched engine:
   * revolute, prismatic, screw, translational, translational2d and weld,
     whose motion subspace S is constant;
   * universal, planar, euler and euler_free ("chain" joints): Q(q) is a
     product of Rodrigues rotations about static axes with a translation
     along static vectors, and S(q) and its rate are written in closed form;
   * ball and free: rotation coordinates w with R = exp(w), S through the
-    right Jacobian of SO(3), exp-map position updates.
+    right Jacobian of SO(3), exp-map position updates;
+  * custom (spline-driven), ellipsoid, scapulathoracic, constantcurve and
+    constantcurveincompressible ("generic" joints): Q(q) batched over the
+    worlds, S(q) by one forward-mode jvp of Q per dof and its rate by a
+    jvp of q -> S(q) dq, as the JAX package takes them; Euclidean
+    position updates.
 Same trailing-batch layout: q, v (nv, B); body rotations (3, 3, B); W
 (6, nv, B). Per-world body parameters enter as the JAX package's do: the
 spatial inertias G_list of bias_forces and mass_matrix_blocks, and the
@@ -46,7 +51,11 @@ _CONST_S_TYPES = (J.REVOLUTE, J.PRISMATIC, J.SCREW, J.TRANSLATIONAL,
 _EXP_TYPES = (J.BALL, J.FREE)
 # Joint types whose S depends on q through their rotation factors.
 _CHAIN_TYPES = (J.UNIVERSAL, J.PLANAR, J.EULER, J.EULER_FREE)
-SUPPORTED_TYPES = _CONST_S_TYPES + _EXP_TYPES + _CHAIN_TYPES
+# Joint types whose Q is written batched per joint and differentiated
+# forward-mode.
+_GENERIC_TYPES = (J.CUSTOM, J.ELLIPSOID_JOINT, J.SCAPULATHORACIC, J.CONSTANT_CURVE,
+                  J.CONSTANT_CURVE_INCOMPRESSIBLE)
+SUPPORTED_TYPES = _CONST_S_TYPES + _EXP_TYPES + _CHAIN_TYPES + _GENERIC_TYPES
 _AXIS_VEC = {"x": np.eye(3)[0], "y": np.eye(3)[1], "z": np.eye(3)[2]}
 
 
@@ -137,11 +146,7 @@ class FlatWorld:
         for si, skel in enumerate(world.skeletons):
             for j in skel.joints:
                 if j.joint_type not in SUPPORTED_TYPES:
-                    raise NotImplementedError(
-                        f"joint type {j.joint_type!r}: the spline-driven joints "
-                        "(S from a jvp of a spline-driven Q) come with "
-                        "math/splines.py (ROADMAP queue 1 item 10c)"
-                    )
+                    raise ValueError(f"unknown joint type {j.joint_type!r}")
                 T_ci = np.linalg.inv(j.T_cj)
                 rot, trans = _factors(j)
                 S_const = S_local = None
@@ -204,6 +209,8 @@ class FlatWorld:
                            if jp.spec.joint_type in _EXP_TYPES]
         self.chain_joints = [bi for bi, jp in enumerate(self.joints)
                              if jp.spec.joint_type in _CHAIN_TYPES]
+        self.generic_joints = [bi for bi, jp in enumerate(self.joints)
+                               if jp.spec.joint_type in _GENERIC_TYPES]
         self._tensors: Dict[Tuple[torch.dtype, torch.device], SimpleNamespace] = {}
 
     def tensors(self, dtype: torch.dtype, device) -> SimpleNamespace:
@@ -328,6 +335,16 @@ class FlatWorld:
                     else np.zeros((0, 6, 6)))[..., None],
             ch_cols=idx(ch_cols),
             ch_dofs=idx(ch_dofs),
+            # Generic joints: body indices, their dofs in body order, and
+            # each one's constants (_generic_consts).
+            gen_bodies=idx(self.generic_joints),
+            gen_body_list=list(self.generic_joints),
+            gen_q=[self.joints[bi].q_index for bi in self.generic_joints],
+            gen_dofs=idx([self.joints[bi].q_index + i for bi in self.generic_joints
+                          for i in range(self.joints[bi].num_dofs)]),
+            gen=[_generic_consts(self.joints[bi].spec, t) for bi in self.generic_joints],
+            gen_Ad=t(np.stack([self.joints[bi].Ad_cj for bi in self.generic_joints])
+                     if self.generic_joints else np.zeros((0, 6, 6)))[..., None],
         )
 
 
@@ -397,6 +414,118 @@ def _exp_S_dot_dq(c, q, v, Ad=None):
     return torch.einsum("kijb,kjb->kib", Ad, sd)
 
 
+# The constant +90 degree z rotation that the ellipsoid joints conjugate
+# their Euler ball into (EllipsoidJoint.cpp).
+_ELLIPSOID_E = np.array([[0.0, 1.0, 0.0], [-1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
+
+
+def _generic_consts(spec: J.JointSpec, t) -> SimpleNamespace:
+    """One generic joint's constants: the skew matrices K, K^2 of its
+    static rotation axes (3, 3, 1) and its static vectors (3, 1) as
+    tensors through t, and its scalars as Python floats."""
+    def rot(a):
+        K = _skew_np(np.asarray(a, dtype=np.float64))
+        return t(K)[..., None], t(K @ K)[..., None]
+
+    ty, pr = spec.joint_type, spec.props or {}
+    g = SimpleNamespace(kind=ty, nd=spec.num_dofs, eye=t(np.eye(3))[..., None])
+    if ty == J.CUSTOM:
+        cj = spec.custom
+        g.rot = [rot(a) for a in cj.rot_axes]
+        g.trans = [t(np.asarray(a, dtype=np.float64))[:, None] for a in cj.trans_axes]
+        g.functions, g.drives = tuple(cj.functions), tuple(int(d) for d in cj.drives)
+    elif ty in (J.ELLIPSOID_JOINT, J.SCAPULATHORACIC):
+        g.rot = [rot(_AXIS_VEC[a]) for a in pr.get("euler_order", "xyz").lower()]
+        g.flip = [float(f) for f in np.asarray(pr.get("flip", np.ones(4)), np.float64)]
+        g.E = t(_ELLIPSOID_E)[..., None]
+        g.radii = t(np.asarray(pr.get("radii", (1.0, 1.0, 1.0)), np.float64))[:, None]
+        if ty == J.SCAPULATHORACIC:
+            alpha = float(pr.get("winging_axis_direction", 0.0))
+            off = np.asarray(pr.get("winging_axis_offset", (0.0, 0.0)), np.float64)
+            g.wing = rot([-np.sin(alpha), np.cos(alpha), 0.0])
+            g.wo = t([off[0], off[1], 0.0])[:, None]
+    else:  # constantcurve(incompressible)
+        g.rot = [rot(_AXIS_VEC[a]) for a in "xzy"]
+        g.neutral = [float(x) for x in np.asarray(pr.get("neutral", np.zeros(g.nd)), np.float64)]
+        g.flip = [float(f) for f in np.asarray(pr.get("flip", np.ones(3)), np.float64)]
+        g.length = float(pr.get("length", 1.0))
+    return g
+
+
+def _rod(g, K, angle):
+    """Rotation by angle (B,) about the static unit axis of K = (K, K^2):
+    I + sin(t) K + (1 - cos(t)) K^2, (3, 3, B)."""
+    return g.eye + K[0] * torch.sin(angle) + K[1] * (1.0 - torch.cos(angle))
+
+
+def _generic_Q(g, qj):
+    """Q(q) of one generic joint, qj (nd, B) -> R (3, 3, B), p (3, B)
+    (dynamics/joints.joint_transform of the JAX package, per type)."""
+    if g.kind == J.CUSTOM:
+        zero = torch.zeros_like(qj[0])
+        vals = [fn(qj[d]) if d >= 0 else fn(zero) for fn, d in zip(g.functions, g.drives)]
+        R = bl.mm(bl.mm(_rod(g, g.rot[0], vals[0]), _rod(g, g.rot[1], vals[1])),
+                  _rod(g, g.rot[2], vals[2]))
+        p = g.trans[0] * vals[3] + g.trans[1] * vals[4] + g.trans[2] * vals[5]
+        return R, p
+    if g.kind in (J.ELLIPSOID_JOINT, J.SCAPULATHORACIC):
+        Re = bl.mm(bl.mm(_rod(g, g.rot[0], qj[0] * g.flip[0]),
+                         _rod(g, g.rot[1], qj[1] * g.flip[1])),
+                   _rod(g, g.rot[2], qj[2] * g.flip[2]))
+        R = bl.mtm(g.E, bl.mm(Re, g.E))
+        p = R[:, 2] * g.radii
+        if g.kind == J.SCAPULATHORACIC:
+            # Winging about an axis in the xy plane, offset in the tangent
+            # plane: T(wo) Rw T(-wo) after the ellipsoid surface.
+            Rw = _rod(g, g.wing, qj[3] * g.flip[3])
+            p = bl.mv(R, g.wo - bl.mv(Rw, g.wo.expand(3, qj.shape[-1]))) + p
+            R = bl.mm(R, Rw)
+        return R, p
+    # Constant-curvature rod: an xzy Euler bend and a rod of length d bent
+    # away from vertical (ConstantCurveJoint.cpp).
+    pos = [qj[i] + g.neutral[i] for i in range(g.nd)]
+    d = pos[3] if g.kind == J.CONSTANT_CURVE else g.length
+    R = bl.mm(bl.mm(_rod(g, g.rot[0], pos[0] * g.flip[0]), _rod(g, g.rot[1], pos[1] * g.flip[1])),
+              _rod(g, g.rot[2], pos[2] * g.flip[2]))
+    cx, sx = torch.cos(pos[0]), torch.sin(pos[0])
+    cz, sz = torch.cos(pos[1]), torch.sin(pos[1])
+    la0, la2 = -sz, cz * sx
+    sin_theta2 = la0**2 + la2**2
+    small = sin_theta2 < 1e-6
+    sin_theta = torch.sqrt(torch.where(small, torch.ones_like(sin_theta2), sin_theta2))
+    theta = torch.asin(torch.clamp(sin_theta, -1.0, 1.0))
+    r = d / torch.where(small, torch.ones_like(theta), theta)
+    horiz = r - r * torch.cos(theta)
+    p_bent = torch.stack([horiz * la0 / sin_theta, r * sin_theta, horiz * la2 / sin_theta])
+    p = torch.where(small, R[:, 1] * d, p_bent)
+    return R, p
+
+
+def _generic_S(g, qj):
+    """The joint-frame S(q) (6, nd, B) of one generic joint: column j is
+    [vee(R^T dR/dq_j); R^T dp/dq_j], dQ/dq_j by one jvp of Q."""
+    cols = []
+    for j in range(g.nd):
+        tangent = torch.zeros_like(qj)
+        tangent[j] = 1.0
+        (R, _), (dR, dp) = torch.func.jvp(lambda qq: _generic_Q(g, qq), (qj,), (tangent,))
+        M = bl.mtm(R, dR)
+        cols.append(torch.cat([torch.stack([M[2, 1], M[0, 2], M[1, 0]]), bl.mtv(R, dp)]))
+    return torch.stack(cols, dim=1)
+
+
+def _generic_S_dot_dq(g, qj, dqj):
+    """(d/dt S(q)) dq of one generic joint along dq, (6, B): the jvp of
+    q -> S(q) dq along dq."""
+    return torch.func.jvp(lambda qq: bl.mv(_generic_S(g, qq), dqj), (qj,), (dqj,))[1]
+
+
+def _generic_Ad(c, k, Ad):
+    """Ad(T_cj) of generic joint k: the plan's, or its row of fk's
+    scaled Ad."""
+    return c.gen_Ad[k] if Ad is None else Ad[c.gen_body_list[k]]
+
+
 def _joint_Q(c, q):
     """Q(q) of every joint: (nb, 3, 3, B), (nb, 3, B), and its rotation
     factors [(nb, 3, 3, B)] (see _factors): each a Rodrigues rotation
@@ -419,6 +548,10 @@ def _joint_Q(c, q):
         R_exp = _unflat(bl.exp_so3(_flat(q[c.exp_rot])), len(c.exp_bodies))
         Rq = Rq.index_copy(0, c.exp_bodies, R_exp)
         pq = pq.index_copy(0, c.exp_bodies, q_pad[c.exp_trans])
+    if c.gen:
+        Rg, pg = zip(*[_generic_Q(g, q[s:s + g.nd]) for g, s in zip(c.gen, c.gen_q)])
+        Rq = Rq.expand(-1, -1, -1, q.shape[-1]).index_copy(0, c.gen_bodies, torch.stack(Rg))
+        pq = pq.expand(-1, -1, q.shape[-1]).index_copy(0, c.gen_bodies, torch.stack(pg))
     return Rq, pq, Rs
 
 
@@ -518,7 +651,7 @@ def fk(fw: FlatWorld, q, scales=None):
     S = c.S_dof  # (nv, 6, 1)
     S_list = c.S
     Ad = None
-    q_dep = fw.exp_joints + fw.chain_joints
+    q_dep = fw.exp_joints + fw.chain_joints + fw.generic_joints
     if scales is not None:
         Ad = _scaled_Ad(c, scales)
         S = torch.einsum("dijb,djb->dib", Ad[c.body_of_dof], c.S_loc)
@@ -530,6 +663,11 @@ def fk(fw: FlatWorld, q, scales=None):
             S = S.index_copy(0, c.exp_dofs, cols[c.exp_cols])
         if fw.chain_joints:
             S = S.index_copy(0, c.ch_dofs, _chain_S(c, Rq, Rs, Ad))
+        if fw.generic_joints:
+            cols = [torch.einsum("ijb,jdb->dib", _generic_Ad(c, k, Ad),
+                                 _generic_S(g, q[s:s + g.nd]))
+                    for k, (g, s) in enumerate(zip(c.gen, c.gen_q))]
+            S = S.index_copy(0, c.gen_dofs, torch.cat(cols))
         S_list = list(S_list)
         for bi in q_dep:
             jp = fw.joints[bi]
@@ -567,7 +705,8 @@ def bias_forces(fw: FlatWorld, q, v, rels, S_list, G_list=None, scales=None,
     acceleration; with ddq, the inverse dynamics M ddq + C.
 
     The S-dot term is zero for constant-S joints, _chain_S_dot_dq for
-    chain joints and _exp_S_dot_dq for ball and free ones. Body-frame
+    chain joints, _exp_S_dot_dq for ball and free ones and
+    _generic_S_dot_dq for the generic ones. Body-frame
     spatial recursion as in dynamics/skeleton.inverse_dynamics of the JAX
     package. G_list: optional per-body (6, 6, B) spatial inertias (body
     parameters), else the plan's; scales: fk's, for the S-dot terms;
@@ -583,6 +722,9 @@ def bias_forces(fw: FlatWorld, q, v, rels, S_list, G_list=None, scales=None,
         sdot.update(zip(fw.exp_joints, _exp_S_dot_dq(c, q, v, Ad)))
     if fw.chain_joints:
         sdot.update(zip(fw.chain_joints, _chain_S_dot_dq(c, q, v, Ad)))
+    for k, (g, s) in enumerate(zip(c.gen, c.gen_q)):
+        sdot[c.gen_body_list[k]] = bl.mv(_generic_Ad(c, k, Ad),
+                                         _generic_S_dot_dq(g, q[s:s + g.nd], v[s:s + g.nd]))
     V: List = [None] * fw.nb
     A: List = [None] * fw.nb
     for bi, jp in enumerate(fw.joints):

@@ -25,15 +25,15 @@ from __future__ import annotations
 
 import functools
 from types import SimpleNamespace
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from nimblephysics_tpu_torch.batched import linalg as bl
+from nimblephysics_tpu_torch.collision import convex
 from nimblephysics_tpu_torch.collision.collider import Collider, _sphere_radius
 
-_PLANE_KINDS = ("sphere_plane", "capsule_plane", "box_plane")
 _EPS = 1e-12
 _BOX_SIGNS = np.array(
     [[sx, sy, sz] for sx in (-1.0, 1.0) for sy in (-1.0, 1.0) for sz in (-1.0, 1.0)]
@@ -476,8 +476,100 @@ def box_box_b(R_a, p_a, half_a, R_b, p_b, half_b):
     return back(pts), back(nrm), back(dep)
 
 
+class Heightmap(NamedTuple):
+    """A heightmap's constants: heights (H, W) as a tensor, its size H, W
+    and its grid spacing and height scale sx, sy, sz (with their
+    reciprocals, so that the card and the CPU round alike: torch divides
+    by a Python number on the card as a product with its reciprocal)."""
+
+    heights: torch.Tensor
+    H: int
+    W: int
+    inv_sx: float
+    inv_sy: float
+    sz: float
+    sz_sx: float
+    sz_sy: float
+
+    @staticmethod
+    def of(heights: torch.Tensor, scale) -> "Heightmap":
+        sx, sy, sz = (float(x) for x in scale)
+        H, W = heights.shape
+        return Heightmap(heights, H, W, 1.0 / sx, 1.0 / sy, sz, sz / sx, sz / sy)
+
+
+def _heightmap_sample(hm: Heightmap, x, y):
+    """Bilinear height, the bilinear patch's up normal (3, N) and whether
+    (x, y) (N,) lies over the grid, in the heightmap's frame
+    (collision/narrowphase._heightmap_sample of the JAX package). The
+    clip to W - 1 - 1e-9 rounds to W - 1 in float32, as it does there,
+    and the last cell then takes fx = 1."""
+    W, H = hm.W, hm.H
+    gx = x * hm.inv_sx + (W - 1) / 2.0
+    gy = y * hm.inv_sy + (H - 1) / 2.0
+    inside = (gx >= 0.0) & (gx <= W - 1) & (gy >= 0.0) & (gy <= H - 1)
+    gx = torch.clamp(gx, 0.0, W - 1 - 1e-9)
+    gy = torch.clamp(gy, 0.0, H - 1 - 1e-9)
+    i0 = torch.clamp(torch.floor(gx).to(torch.int64), 0, W - 2)
+    j0 = torch.clamp(torch.floor(gy).to(torch.int64), 0, H - 2)
+    fx = gx - i0.to(gx.dtype)
+    fy = gy - j0.to(gy.dtype)
+    h00 = hm.heights[j0, i0]
+    h10 = hm.heights[j0, i0 + 1]
+    h01 = hm.heights[j0 + 1, i0]
+    h11 = hm.heights[j0 + 1, i0 + 1]
+    h = ((1 - fx) * (1 - fy) * h00 + fx * (1 - fy) * h10
+         + (1 - fx) * fy * h01 + fx * fy * h11) * hm.sz
+    dh_dx = ((1 - fy) * (h10 - h00) + fy * (h11 - h01)) * hm.sz_sx
+    dh_dy = ((1 - fx) * (h01 - h00) + fx * (h11 - h10)) * hm.sz_sy
+    n = torch.stack([-dh_dx, -dh_dy, torch.ones_like(h)])
+    return h, n / torch.sqrt(torch.sum(n * n, dim=0)), inside
+
+
+def _sphere_heightmap_flat(hm, center, radius, R_hm, p_hm):
+    """Sphere (A) against a heightmap (B): 1 contact, the gap along the
+    vertical projected on the patch normal (exact on flat cells); depth
+    -1 off the grid."""
+    c_local = bl.mtv(R_hm, center - p_hm)
+    h, n_local, inside = _heightmap_sample(hm, c_local[0], c_local[1])
+    gap = (c_local[2] - h) * n_local[2]
+    depth = torch.where(inside, radius - gap, -torch.ones_like(gap))
+    n_world = bl.mv(R_hm, n_local)
+    point = center - n_world * (radius - 0.5 * depth)
+    return point[None], n_world[None], depth[None]
+
+
+def _capsule_heightmap_flat(hm, R_cap, p_cap, radius, height, R_hm, p_hm):
+    """Capsule (A) against a heightmap (B): 3 contacts, spheres at -h/2,
+    0 and +h/2 along the axis."""
+    axis = R_cap[:, 2]
+    outs = [_sphere_heightmap_flat(hm, p_cap + axis * (t * height), radius, R_hm, p_hm)
+            for t in (-0.5, 0.0, 0.5)]
+    return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
+
+
+def _box_heightmap_flat(hm, R_box, p_box, half, R_hm, p_hm):
+    """Box (A) against a heightmap (B): the 8 corners as points."""
+    signs = _statics(p_box.dtype, p_box.device).box_signs
+    zero = torch.zeros_like(p_box[0])
+    outs = [_sphere_heightmap_flat(hm, bl.mv(R_box, s[:, None] * half) + p_box, zero, R_hm, p_hm)
+            for s in signs]
+    return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
+
+
+def _group_key(unit) -> tuple:
+    """The batched evaluation group of a test unit: its kind, whether its
+    normal is negated, and the hulls or heightmap it reads (a group shares
+    them)."""
+    hm = id(unit.shape_b) if unit.kind.endswith("_heightmap") else None
+    return (unit.kind, unit.flip, id(unit.hull_a) if unit.hull_a is not None else None,
+            id(unit.hull_b) if unit.hull_b is not None else None, hm)
+
+
 class BatchedCollider:
-    """Evaluates a Collider's static slot plan on a world batch."""
+    """Evaluates a Collider's static slot plan on a world batch: its test
+    units (Collider.units) in groups of one kind that share their hulls
+    or heightmap, each group as one batched op."""
 
     def __init__(self, collider: Collider):
         self.collider = collider
@@ -495,13 +587,14 @@ class BatchedCollider:
         self.mu = np.asarray(mu)
         self.restitution = np.asarray(e)
         self.num_contacts = collider.num_contacts
-        # Contact positions of each kind's outputs, in slot order.
-        first = np.cumsum([0] + [s.n_slots for s in self.slots])
-        self._groups: Dict[str, List[int]] = {}
-        for i, slot in enumerate(self.slots):
-            self._groups.setdefault(slot.kind, []).append(i)
+        # Contact positions of each group's outputs, in unit order.
+        self.units = [u for _, u in collider.units]
+        first = np.cumsum([0] + [u.n_slots for u in self.units])
+        self._groups: Dict[tuple, List[int]] = {}
+        for i, unit in enumerate(self.units):
+            self._groups.setdefault(_group_key(unit), []).append(i)
         order = []
-        for kind, idx in self._groups.items():
+        for idx in self._groups.values():
             for i in idx:
                 order += list(range(first[i], first[i + 1]))
         self._inv_order = np.argsort(np.asarray(order, dtype=np.int64))
@@ -517,28 +610,29 @@ class BatchedCollider:
 
         _statics(dtype, torch.device(device))  # the kinds' shared constants
         out = {"inv_order": torch.as_tensor(self._inv_order, device=device)}
-        for kind, idx in self._groups.items():
-            slots = [self.slots[i] for i in idx]
-            Ta = np.stack([s.shape_a.T_offset for s in slots])
-            Tb = np.stack([s.shape_b.T_offset for s in slots])
+        for gkey, idx in self._groups.items():
+            kind = gkey[0]
+            units = [self.units[i] for i in idx]
+            Ta = np.stack([u.shape_a.T_offset for u in units])
+            Tb = np.stack([u.shape_b.T_offset for u in units])
             c = dict(
-                body_a=[s.body_a for s in slots],
-                body_b=[s.body_b for s in slots],
+                body_a=[u.body_a for u in units],
+                body_b=[u.body_b for u in units],
                 Ra_off=t(Ta[:, :3, :3])[..., None],
                 pa_off=t(Ta[:, :3, 3])[..., None],
                 Rb_off=t(Tb[:, :3, :3])[..., None],
                 pb_off=t(Tb[:, :3, 3])[..., None],
             )
-            if kind in _PLANE_KINDS:
+            if kind.endswith("_plane"):
                 plane = np.stack(
-                    [np.asarray(s.shape_b.size, np.float64).reshape(-1) for s in slots]
+                    [np.asarray(u.shape_b.size, np.float64).reshape(-1) for u in units]
                 )
                 n_local = plane[:, :3] / np.linalg.norm(plane[:, :3], axis=1)[:, None]
-                d_local = plane[:, 3] if plane.shape[1] > 3 else np.zeros(len(slots))
+                d_local = plane[:, 3] if plane.shape[1] > 3 else np.zeros(len(units))
                 c.update(n_local=t(n_local)[..., None], d_local=t(d_local)[:, None])
             kind_a, kind_b = kind.split("_")
             for side, shape_kind in (("a", kind_a), ("b", kind_b)):
-                shapes = [getattr(s, f"shape_{side}") for s in slots]
+                shapes = [getattr(u, f"shape_{side}") for u in units]
                 if shape_kind == "sphere":
                     c[f"radius_{side}"] = t([_sphere_radius(x) for x in shapes])[:, None, None]
                 elif shape_kind == "capsule":
@@ -546,7 +640,13 @@ class BatchedCollider:
                     c[f"height_{side}"] = t([float(x.size[1]) for x in shapes])[:, None, None]
                 elif shape_kind == "box":
                     c[f"half_{side}"] = t([np.asarray(x.size) / 2.0 for x in shapes])[..., None]
-            out[kind] = c
+                elif shape_kind == "mesh":
+                    hull = getattr(units[0], f"hull_{side}")
+                    c[f"hull_{side}"] = hull.tensors(dtype, device)
+                    c[f"k_{side}"] = min(8 if kind == "mesh_plane" else 4, len(hull.verts))
+                elif shape_kind == "heightmap":
+                    c["hm"] = Heightmap.of(t(shapes[0].heights), shapes[0].size)
+            out[gkey] = c
         self._tensors[key] = out
         return out
 
@@ -557,6 +657,54 @@ class BatchedCollider:
         R = torch.einsum("sijb,sjkb->sikb", R_body, R_off)
         p = torch.einsum("sijb,sjb->sib", R_body, p_off) + p_body
         return R, p
+
+    @staticmethod
+    def _eval(kind, c, B, Ra, pa, Rb, pb):
+        """One group's contacts: (m S, 3, B), (m S, 3, B), (m S, B)."""
+        if kind == "box_box":
+            return box_box_b(Ra, pa, c["half_a"], Rb, pb, c["half_b"])
+        if kind == "sphere_sphere":
+            return sphere_sphere_b(pa, c["radius_a"], pb, c["radius_b"])
+        if kind == "sphere_box":
+            return sphere_box_b(pa, c["radius_a"], Rb, pb, c["half_b"])
+        if kind == "capsule_sphere":
+            return capsule_sphere_b(Ra, pa, c["radius_a"], c["height_a"], pb, c["radius_b"])
+        if kind == "capsule_capsule":
+            return capsule_capsule_b(Ra, pa, c["radius_a"], c["height_a"], Rb, pb,
+                                     c["radius_b"], c["height_b"])
+        if kind == "capsule_box":
+            return capsule_box_b(Ra, pa, c["radius_a"], c["height_a"], Rb, pb, c["half_b"])
+        if kind == "sphere_mesh":
+            return _per_slot(functools.partial(convex.sphere_mesh_flat, c["hull_b"]), B,
+                             pa, c["radius_a"][:, 0], Rb, pb)
+        if kind == "capsule_mesh":
+            return _per_slot(functools.partial(convex.capsule_mesh_flat, c["hull_b"]), B,
+                             Ra, pa, c["radius_a"][:, 0], c["height_a"][:, 0], Rb, pb)
+        if kind == "box_mesh":
+            return _per_slot(functools.partial(convex.box_mesh_flat, c["hull_b"], c["k_b"]),
+                             B, Ra, pa, c["half_a"], Rb, pb)
+        if kind == "mesh_mesh":
+            return _per_slot(functools.partial(convex.mesh_mesh_flat, c["hull_a"], c["hull_b"],
+                                               c["k_a"], c["k_b"]), B, Ra, pa, Rb, pb)
+        if kind == "sphere_heightmap":
+            return _per_slot(functools.partial(_sphere_heightmap_flat, c["hm"]), B,
+                             pa, c["radius_a"][:, 0], Rb, pb)
+        if kind == "capsule_heightmap":
+            return _per_slot(functools.partial(_capsule_heightmap_flat, c["hm"]), B,
+                             Ra, pa, c["radius_a"][:, 0], c["height_a"][:, 0], Rb, pb)
+        if kind == "box_heightmap":
+            return _per_slot(functools.partial(_box_heightmap_flat, c["hm"]), B,
+                             Ra, pa, c["half_a"], Rb, pb)
+        n_w = torch.einsum("sijb,sjb->sib", Rb, c["n_local"])
+        d_w = c["d_local"] + torch.sum(n_w * pb, dim=1)
+        if kind == "capsule_plane":
+            return capsule_plane_b(Ra, pa, c["radius_a"], c["height_a"], n_w, d_w)
+        if kind == "box_plane":
+            return box_plane_b(Ra, pa, c["half_a"], n_w, d_w)
+        if kind == "mesh_plane":
+            return _per_slot(functools.partial(convex.mesh_plane_flat, c["hull_a"], c["k_a"]),
+                             B, Ra, pa, n_w, d_w)
+        return sphere_plane_b(pa, c["radius_a"], n_w, d_w)
 
     def collide(self, R_wb: List, p_wb: List, B: int):
         """All slots -> (point (C,3,B), normal (C,3,B), depth (C,B))."""
@@ -569,37 +717,14 @@ class BatchedCollider:
             )
         consts = self._consts(dtype, device)
         pts, nrms, deps = [], [], []
-        for kind in self._groups:
-            c = consts[kind]
+        for gkey in self._groups:
+            c = consts[gkey]
             Ra, pa = self._shape_T(R_wb, p_wb, c["body_a"], c["Ra_off"], c["pa_off"])
             Rb, pb = self._shape_T(R_wb, p_wb, c["body_b"], c["Rb_off"], c["pb_off"])
-            if kind == "box_box":
-                out = box_box_b(Ra, pa, c["half_a"], Rb, pb, c["half_b"])
-            elif kind == "sphere_sphere":
-                out = sphere_sphere_b(pa, c["radius_a"], pb, c["radius_b"])
-            elif kind == "sphere_box":
-                out = sphere_box_b(pa, c["radius_a"], Rb, pb, c["half_b"])
-            elif kind == "capsule_sphere":
-                out = capsule_sphere_b(Ra, pa, c["radius_a"], c["height_a"], pb,
-                                       c["radius_b"])
-            elif kind == "capsule_capsule":
-                out = capsule_capsule_b(Ra, pa, c["radius_a"], c["height_a"], Rb, pb,
-                                        c["radius_b"], c["height_b"])
-            elif kind == "capsule_box":
-                out = capsule_box_b(Ra, pa, c["radius_a"], c["height_a"], Rb, pb,
-                                    c["half_b"])
-            else:
-                n_w = torch.einsum("sijb,sjb->sib", Rb, c["n_local"])
-                d_w = c["d_local"] + torch.sum(n_w * pb, dim=1)
-                if kind == "capsule_plane":
-                    out = capsule_plane_b(Ra, pa, c["radius_a"], c["height_a"], n_w, d_w)
-                elif kind == "box_plane":
-                    out = box_plane_b(Ra, pa, c["half_a"], n_w, d_w)
-                else:
-                    out = sphere_plane_b(pa, c["radius_a"], n_w, d_w)
-            pts.append(out[0])
-            nrms.append(out[1])
-            deps.append(out[2])
+            p, n, d = self._eval(gkey[0], c, B, Ra, pa, Rb, pb)
+            pts.append(p)
+            nrms.append(-n if gkey[1] else n)
+            deps.append(d)
         inv = consts["inv_order"]
         return (
             torch.cat(pts)[inv],

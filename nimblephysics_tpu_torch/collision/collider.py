@@ -3,9 +3,13 @@ set of one world.
 
 Counterpart of nimblephysics_tpu/collision/collider.py (_PairSlot,
 _canonical_pair, the BodyNodeCollisionFilter rules of Collider._build,
-num_contacts, Contacts and Collider.collide). Pairs are enumerated once
-from the static world spec; batched/collision.py evaluates them on a
-world batch, `collide` on one world through narrowphase.py.
+num_contacts, Contacts, Collider.collide and _dispatch_multisphere).
+Pairs are enumerated once from the static world spec, with every pair
+kind of the JAX package: the primitive pairs, convex meshes (hulls built
+here), heightmaps and sphere sets. Each slot runs one or more primitive
+test units (a sphere set one per member sphere); batched/collision.py
+evaluates them on a world batch, `collide` on one world through
+narrowphase.py.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from nimblephysics_tpu_torch.collision.convex import ConvexHull
 from nimblephysics_tpu_torch.dynamics import shapes as SH
 from nimblephysics_tpu_torch.simulation.world import World
 
@@ -49,10 +54,14 @@ class _PairSlot:
     shape_a: SH.ShapeSpec
     shape_b: SH.ShapeSpec
     n_slots: int
+    hull_a: object = None  # convex.ConvexHull of a mesh shape
+    hull_b: object = None
+    flip: bool = False  # a test unit whose normal is negated (see _units)
 
 
 # (type_a, type_b) -> (kind, contact slots per pair); ellipsoids collide
-# as spheres (reference behaviour).
+# as spheres (reference behaviour). A mesh pair's slot count follows its
+# decimated hull and a sphere set's its spheres (Collider._build).
 _PAIR_TABLE = {
     (SH.SPHERE, SH.SPHERE): ("sphere_sphere", 1),
     (SH.SPHERE, SH.PLANE): ("sphere_plane", 1),
@@ -63,11 +72,24 @@ _PAIR_TABLE = {
     (SH.CAPSULE, SH.CAPSULE): ("capsule_capsule", 1),
     (SH.CAPSULE, SH.BOX): ("capsule_box", 3),
     (SH.BOX, SH.BOX): ("box_box", 8),
+    # Convex meshes (collision/convex.py).
+    (SH.MESH, SH.PLANE): ("mesh_plane", 8),
+    (SH.SPHERE, SH.MESH): ("sphere_mesh", 1),
+    (SH.CAPSULE, SH.MESH): ("capsule_mesh", 3),
+    (SH.BOX, SH.MESH): ("box_mesh", 8),
+    (SH.MESH, SH.MESH): ("mesh_mesh", 8),
+    # Heightmap terrain.
+    (SH.SPHERE, SH.HEIGHTMAP): ("sphere_heightmap", 1),
+    (SH.CAPSULE, SH.HEIGHTMAP): ("capsule_heightmap", 3),
+    (SH.BOX, SH.HEIGHTMAP): ("box_heightmap", 8),
+    # Sphere sets collide as their member spheres.
+    (SH.MULTI_SPHERE, SH.PLANE): ("multisphere_plane", 0),
+    (SH.SPHERE, SH.MULTI_SPHERE): ("sphere_multisphere", 0),
+    (SH.CAPSULE, SH.MULTI_SPHERE): ("capsule_multisphere", 0),
+    (SH.BOX, SH.MULTI_SPHERE): ("box_multisphere", 0),
+    (SH.MULTI_SPHERE, SH.MULTI_SPHERE): ("multisphere_multisphere", 0),
+    (SH.MULTI_SPHERE, SH.HEIGHTMAP): ("multisphere_heightmap", 0),
 }
-
-# Pairs the JAX package collides through convex hulls, heightmaps or
-# sphere sets; their slot counts depend on that geometry.
-_LATER_TYPES = (SH.MESH, SH.HEIGHTMAP, SH.MULTI_SPHERE)
 
 
 def _canonical_pair(sa: SH.ShapeSpec, sb: SH.ShapeSpec):
@@ -79,12 +101,6 @@ def _canonical_pair(sa: SH.ShapeSpec, sb: SH.ShapeSpec):
         return _PAIR_TABLE[(ta, tb)] + (False,)
     if (tb, ta) in _PAIR_TABLE:
         return _PAIR_TABLE[(tb, ta)] + (True,)
-    if ta in _LATER_TYPES or tb in _LATER_TYPES:
-        raise NotImplementedError(
-            f"collision pair ({ta}, {tb}): mesh, heightmap and multisphere "
-            "pairs go through the convex-hull, heightmap and sphere-set "
-            "narrowphase, which comes with ROADMAP queue 1 item 10c"
-        )
     return None, 0, False
 
 
@@ -94,6 +110,43 @@ def _sphere_radius(spec: SH.ShapeSpec) -> float:
     return float(np.asarray(spec.size).reshape(-1)[0])
 
 
+def _members(spec: SH.ShapeSpec) -> List[SH.ShapeSpec]:
+    """A sphere set's member spheres as sphere shapes, each centre folded
+    into its offset: T_offset @ translation(c)."""
+    out = []
+    for row in np.asarray(spec.spheres, dtype=np.float64).reshape(-1, 4):
+        T = np.eye(4)
+        T[:3, 3] = row[:3]
+        out.append(SH.ShapeSpec(SH.SPHERE, np.array([row[3]]),
+                                T_offset=np.asarray(spec.T_offset, np.float64) @ T))
+    return out
+
+
+def _units(slot: _PairSlot) -> List[_PairSlot]:
+    """The primitive tests a slot runs, in its contact order: the slot
+    itself, or for a sphere-set kind one test per member sphere (per
+    member pair for two sets; the JAX package's _dispatch_multisphere).
+    A box's test against a member sphere runs sphere_box with the sphere
+    as A (flip: its normal is negated, so that it points from the sphere
+    set, body B, to the box)."""
+    k = slot.kind
+    if "multisphere" not in k:
+        return [slot]
+    ga, gb, sa, sb = slot.body_a, slot.body_b, slot.shape_a, slot.shape_b
+    if k == "multisphere_plane":
+        return [_PairSlot("sphere_plane", ga, gb, m, sb, 1) for m in _members(sa)]
+    if k == "multisphere_heightmap":
+        return [_PairSlot("sphere_heightmap", ga, gb, m, sb, 1) for m in _members(sa)]
+    if k == "sphere_multisphere":
+        return [_PairSlot("sphere_sphere", ga, gb, sa, m, 1) for m in _members(sb)]
+    if k == "capsule_multisphere":
+        return [_PairSlot("capsule_sphere", ga, gb, sa, m, 1) for m in _members(sb)]
+    if k == "box_multisphere":
+        return [_PairSlot("sphere_box", gb, ga, m, sa, 1, flip=True) for m in _members(sb)]
+    return [_PairSlot("sphere_sphere", ga, gb, ma, mb, 1)
+            for ma in _members(sa) for mb in _members(sb)]
+
+
 class Collider:
     """Static collision plan for a World."""
 
@@ -101,6 +154,10 @@ class Collider:
         self.world = world
         self.slots: List[_PairSlot] = []
         self._build()
+        # Every slot's primitive tests in contact order, with its slot's
+        # index.
+        self.units: List[Tuple[int, _PairSlot]] = [
+            (i, u) for i, s in enumerate(self.slots) for u in _units(s)]
         self._tensors: Dict[Tuple, dict] = {}
 
     def _build(self) -> None:
@@ -135,6 +192,13 @@ class Collider:
         def is_static(si) -> bool:
             return w.skeletons[si].num_dofs == 0
 
+        hull_cache = {}
+
+        def hull_of(spec):
+            if id(spec) not in hull_cache:
+                hull_cache[id(spec)] = ConvexHull.build(spec.mesh_vertices)
+            return hull_cache[id(spec)]
+
         for i in range(len(entries)):
             for j in range(i + 1, len(entries)):
                 ga, sa_i, ba_i, sa = entries[i]
@@ -148,7 +212,33 @@ class Collider:
                     continue
                 if swap:
                     ga, gb, sa, sb = gb, ga, sb, sa
-                self.slots.append(_PairSlot(kind, ga, gb, sa, sb, n_slots))
+                # Mesh hulls are built here; a mesh without vertices
+                # collides with nothing.
+                hull_a = hull_b = None
+                if sa.shape_type == SH.MESH:
+                    if sa.mesh_vertices is None:
+                        continue
+                    hull_a = hull_of(sa)
+                if sb.shape_type == SH.MESH:
+                    if sb.mesh_vertices is None:
+                        continue
+                    hull_b = hull_of(sb)
+                if "multisphere" in kind:
+                    na = len(sa.spheres) if sa.shape_type == SH.MULTI_SPHERE else 1
+                    nb = len(sb.spheres) if sb.shape_type == SH.MULTI_SPHERE else 1
+                    if kind == "multisphere_multisphere":
+                        n_slots = na * nb
+                    elif kind in ("box_multisphere", "capsule_multisphere"):
+                        n_slots = nb
+                    else:
+                        n_slots = max(na, nb)
+                if kind == "mesh_plane":
+                    n_slots = min(8, len(hull_a.verts))
+                elif kind == "box_mesh":
+                    n_slots = 4 + min(4, len(hull_b.verts))
+                elif kind == "mesh_mesh":
+                    n_slots = min(4, len(hull_a.verts)) + min(4, len(hull_b.verts))
+                self.slots.append(_PairSlot(kind, ga, gb, sa, sb, n_slots, hull_a, hull_b))
 
     @property
     def num_contacts(self) -> int:
@@ -171,18 +261,19 @@ class Collider:
             )
 
     def _consts(self, dtype, device) -> dict:
-        """Each slot's shape offsets and sizes, and the contacts' static
-        columns, as tensors, built once per dtype and device."""
+        """Each test unit's shape offsets, sizes, hulls and heightmaps, and
+        the contacts' static columns, as tensors, built once per dtype and
+        device."""
         key = (dtype, torch.device(device))
         if key not in self._tensors:
             def t(x):
                 return torch.as_tensor(np.asarray(x, dtype=np.float64), dtype=dtype,
                                        device=device)
 
-            slots = []
-            for s in self.slots:
-                c = dict(T_a=t(s.shape_a.T_offset), T_b=t(s.shape_b.T_offset))
-                for side, spec in (("a", s.shape_a), ("b", s.shape_b)):
+            units = []
+            for _, u in self.units:
+                c = dict(T_a=t(u.shape_a.T_offset), T_b=t(u.shape_b.T_offset))
+                for side, spec, hull in (("a", u.shape_a, u.hull_a), ("b", u.shape_b, u.hull_b)):
                     size = np.asarray(spec.size, dtype=np.float64).reshape(-1)
                     if spec.shape_type == SH.PLANE:
                         c["n_local"] = t(size[:3] / np.linalg.norm(size[:3]))
@@ -191,9 +282,13 @@ class Collider:
                         c[f"half_{side}"] = t(size / 2.0)
                     elif spec.shape_type == SH.CAPSULE:
                         c[f"radius_{side}"], c[f"height_{side}"] = t(size[0]), t(size[1])
+                    elif spec.shape_type == SH.MESH:
+                        c[f"hull_{side}"] = hull
+                    elif spec.shape_type == SH.HEIGHTMAP:
+                        c["heights"] = t(spec.heights)
                     else:
                         c[f"radius_{side}"] = t(_sphere_radius(spec))
-                slots.append(c)
+                units.append(c)
             k = [s.n_slots for s in self.slots]
 
             def per_contact(vals, kind):
@@ -201,7 +296,7 @@ class Collider:
                                        device=device)
 
             self._tensors[key] = dict(
-                slots=slots,
+                units=units,
                 body_a=per_contact([s.body_a for s in self.slots], np.int64),
                 body_b=per_contact([s.body_b for s in self.slots], np.int64),
                 friction=per_contact([min(s.shape_a.friction, s.shape_b.friction)
@@ -229,20 +324,19 @@ class Collider:
             zi = torch.zeros(0, dtype=torch.int64, device=device)
             return Contacts(z3, z3, z1, zi, zi, z1, z1)
         pts, nrm, dep = [], [], []
-        for slot, sc in zip(self.slots, c["slots"]):
-            Ta = T_wb[slot.body_a] @ sc["T_a"]
-            Tb = T_wb[slot.body_b] @ sc["T_b"]
-            p, n, d = self._dispatch(slot, Ta, Tb, sc)
+        for (_, unit), uc in zip(self.units, c["units"]):
+            Ta = T_wb[unit.body_a] @ uc["T_a"]
+            Tb = T_wb[unit.body_b] @ uc["T_b"]
+            p, n, d = self._dispatch(unit, Ta, Tb, uc)
             pts.append(p)
-            nrm.append(n)
+            nrm.append(-n if unit.flip else n)
             dep.append(d)
         return Contacts(torch.cat(pts), torch.cat(nrm), torch.cat(dep), c["body_a"],
                         c["body_b"], c["friction"], c["restitution"])
 
     @staticmethod
     def _dispatch(slot: _PairSlot, Ta, Tb, c):
-        """One slot's narrowphase test; c: the slot's constants
-        (_consts)."""
+        """One test unit's narrowphase; c: its constants (_consts)."""
         from nimblephysics_tpu_torch.collision import narrowphase as nphase
 
         k = slot.kind
@@ -260,6 +354,22 @@ class Collider:
             return nphase.capsule_box(Ta, c["radius_a"], c["height_a"], Tb, c["half_b"])
         if k == "box_box":
             return nphase.box_box_sat(Ta, c["half_a"], Tb, c["half_b"])
+        if k == "sphere_mesh":
+            return nphase.sphere_mesh(Ta[:3, 3], c["radius_a"], Tb, c["hull_b"])
+        if k == "capsule_mesh":
+            return nphase.capsule_mesh(Ta, c["radius_a"], c["height_a"], Tb, c["hull_b"])
+        if k == "box_mesh":
+            return nphase.box_mesh(Ta, c["half_a"], Tb, c["hull_b"])
+        if k == "mesh_mesh":
+            return nphase.mesh_mesh(Ta, c["hull_a"], Tb, c["hull_b"])
+        if k.endswith("_heightmap"):
+            scale = tuple(slot.shape_b.size)
+            if k == "sphere_heightmap":
+                return nphase.sphere_heightmap(Ta[:3, 3], c["radius_a"], Tb, c["heights"], scale)
+            if k == "capsule_heightmap":
+                return nphase.capsule_heightmap(Ta, c["radius_a"], c["height_a"], Tb,
+                                                c["heights"], scale)
+            return nphase.box_heightmap(Ta, c["half_a"], Tb, c["heights"], scale)
         # The plane kinds: the plane in world coordinates.
         n_w = Tb[:3, :3] @ c["n_local"]
         d_w = c["d_local"] + torch.dot(n_w, Tb[:3, 3])
@@ -269,4 +379,6 @@ class Collider:
             return nphase.box_plane(Ta, c["half_a"], n_w, d_w)
         if k == "capsule_plane":
             return nphase.capsule_plane(Ta, c["radius_a"], c["height_a"], n_w, d_w)
+        if k == "mesh_plane":
+            return nphase.mesh_plane(Ta, c["hull_a"], n_w, d_w)
         raise NotImplementedError(k)

@@ -2,7 +2,9 @@
 with a fixed number of contact slots.
 
 Counterpart of nimblephysics_tpu/collision/narrowphase.py (sphere_plane
-through box_box_sat, and ellipsoid_as_sphere). Each pair runs the batched
+through box_box_sat, the heightmap pairs and ellipsoid_as_sphere) and of
+the pair functions of nimblephysics_tpu/collision/convex.py (a hull is a
+convex.ConvexHull). Each pair runs the batched
 formula of batched/collision.py on a batch of one, so the single world and
 the batched engine share one arithmetic. Conventions are the JAX
 package's: the normal points from body B (second) to body A (first),
@@ -17,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from nimblephysics_tpu_torch.batched import collision as bc
+from nimblephysics_tpu_torch.collision import convex
 
 
 def _s(x, ref):
@@ -106,6 +109,76 @@ def box_box_sat(T_a, half_a, T_b, half_b):
     one edge-edge contact); unused slots have depth -1."""
     return _out(*bc._box_box_flat(T_a[:3, :3, None], _col(T_a[:3, 3]), _col(half_a),
                                   T_b[:3, :3, None], _col(T_b[:3, 3]), _col(half_b)))
+
+
+def _hull(hull: convex.ConvexHull, ref):
+    """A hull's tensors in ref's dtype and on its device."""
+    return hull.tensors(ref.dtype, ref.device)
+
+
+def _pose(T):
+    """A 4x4 pose as a batch of one: (3, 3, 1), (3, 1)."""
+    return T[:3, :3, None], _col(T[:3, 3])
+
+
+def mesh_plane(T_mesh, hull, plane_normal, plane_offset):
+    """Mesh (A) against a plane (B): min(8, V) slots, the deepest hull
+    vertices."""
+    h = _hull(hull, T_mesh)
+    return _out(*convex.mesh_plane_flat(h, min(8, h[0].shape[0]), *_pose(T_mesh),
+                                        _col(plane_normal), _s(plane_offset, T_mesh).reshape(1)))
+
+
+def sphere_mesh(center, radius, T_mesh, hull):
+    """Sphere (A) against a mesh (B): 1 slot."""
+    return _out(*convex.sphere_mesh_flat(_hull(hull, center), _col(center),
+                                         _s(radius, center).reshape(1), *_pose(T_mesh)))
+
+
+def capsule_mesh(T_cap, radius, height, T_mesh, hull):
+    """Capsule (A) against a mesh (B): 3 slots of 5 samples along the
+    axis."""
+    return _out(*convex.capsule_mesh_flat(_hull(hull, T_cap), *_pose(T_cap),
+                                          _s(radius, T_cap).reshape(1),
+                                          _s(height, T_cap).reshape(1), *_pose(T_mesh)))
+
+
+def box_mesh(T_box, half_extents, T_mesh, hull):
+    """Box (A) against a mesh (B): 4 corner slots, then min(4, V) hull
+    vertex slots."""
+    h = _hull(hull, T_box)
+    return _out(*convex.box_mesh_flat(h, min(4, h[0].shape[0]), *_pose(T_box),
+                                      _col(half_extents), *_pose(T_mesh)))
+
+
+def mesh_mesh(T_a, hull_a, T_b, hull_b):
+    """Mesh (A) against mesh (B): A's vertices in B, then B's in A, at most
+    4 slots each."""
+    ha, hb = _hull(hull_a, T_a), _hull(hull_b, T_a)
+    return _out(*convex.mesh_mesh_flat(ha, hb, min(4, ha[0].shape[0]), min(4, hb[0].shape[0]),
+                                       *_pose(T_a), *_pose(T_b)))
+
+
+def sphere_heightmap(center, radius, T_hm, heights, scale):
+    """Sphere (A) against a heightmap (B, heights (H, W), scale (sx, sy,
+    sz)): 1 slot; depth -1 off the grid."""
+    return _out(*bc._sphere_heightmap_flat(bc.Heightmap.of(heights.to(center.dtype), scale),
+                                           _col(center), _s(radius, center).reshape(1),
+                                           *_pose(T_hm)))
+
+
+def capsule_heightmap(T_cap, radius, height, T_hm, heights, scale):
+    """Capsule (A) against a heightmap (B): 3 slots, spheres at -h/2, 0,
+    +h/2."""
+    return _out(*bc._capsule_heightmap_flat(
+        bc.Heightmap.of(heights.to(T_cap.dtype), scale), *_pose(T_cap),
+        _s(radius, T_cap).reshape(1), _s(height, T_cap).reshape(1), *_pose(T_hm)))
+
+
+def box_heightmap(T_box, half_extents, T_hm, heights, scale):
+    """Box (A) against a heightmap (B): 8 corner slots."""
+    return _out(*bc._box_heightmap_flat(bc.Heightmap.of(heights.to(T_box.dtype), scale),
+                                        *_pose(T_box), _col(half_extents), *_pose(T_hm)))
 
 
 def ellipsoid_as_sphere(size):

@@ -27,19 +27,28 @@ Spec layout (every array-like is converted with np.asarray):
                      "axes" (k,3) or None, "euler_order", "screw_pitch",
                      "damping", "spring_stiffness",
                      "rest_position", "position_lower", "position_upper",
-                     "velocity_limit", "force_limit": (nd,) or None}],
+                     "velocity_limit", "force_limit": (nd,) or None,
+                     "props": dict or None,
+                     "custom": {"n_dofs", "rot_axes" (3,3),
+                                "trans_axes" (3,3), "drives" (6,),
+                                "functions": [(kind, params, scale)] x 6}
+                               or None}],
          "bodies": [{"mass", "com" (3,), "inertia" (3,3),
                      "shapes": [{"type", "size", "T_offset" (4,4),
                                  "friction", "restitution",
-                                 "collidable"}]}]}]}
+                                 "collidable", "mesh_vertices" (n,3),
+                                 "heights" (H,W), "spheres" (N,4)}]}]}]}
 
 Joint i of a skeleton carries body i. Joint types are the names of
-dynamics/joints.py; the batched engine takes all of them but the
-spline-driven ones (custom, ellipsoid, scapulathoracic, constantcurve,
-constantcurveincompressible). Shape types are those of
-dynamics/shapes.py, with their `size`: "box" full side lengths (3,),
-"plane" [nx, ny, nz, offset], "sphere" [radius], "capsule" [radius,
-height]. collision_overrides and dynamic_constraints name global body
+dynamics/joints.py, and both engines take all of them; "props" holds a
+biomechanics joint's parameters (ellipsoid, scapulathoracic,
+constantcurve, constantcurveincompressible) and "custom" a custom
+joint's definition, each function as math/splines.Fn's (kind, params,
+scale). Shape types are those of dynamics/shapes.py, with their `size`:
+"box" full side lengths (3,), "plane" [nx, ny, nz, offset], "sphere"
+[radius], "capsule" [radius, height], "heightmap" [sx, sy, sz] with
+"heights"; "mesh" takes "mesh_vertices" and "multisphere" "spheres" (rows
+[cx, cy, cz, radius]). collision_overrides and dynamic_constraints name global body
 indices (bodies counted across the skeletons in order); False filters a
 pair, True forces it. A weld entry carries the relative rotation and
 anchor offsets captured where it was made (World.add_weld_joint_constraint).
@@ -52,8 +61,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from nimblephysics_tpu_torch.dynamics.joints import CustomJointDef
 from nimblephysics_tpu_torch.dynamics.shapes import ShapeSpec
 from nimblephysics_tpu_torch.dynamics.skeleton import Skeleton
+from nimblephysics_tpu_torch.math.splines import Fn
 from nimblephysics_tpu_torch.parallel.mesh import MlpPolicy
 from nimblephysics_tpu_torch.simulation.world import SolverConfig, World
 
@@ -61,6 +72,26 @@ _JOINT_VECTORS = (
     "damping", "spring_stiffness", "rest_position", "position_lower",
     "position_upper", "velocity_limit", "force_limit",
 )
+
+
+_SHAPE_ARRAYS = ("mesh_vertices", "heights", "spheres")
+
+
+def _custom(cd: Optional[dict]) -> Optional[CustomJointDef]:
+    """A custom joint's definition from its plain-array form."""
+    if cd is None:
+        return None
+    fns = tuple(
+        Fn(kind, tuple(np.asarray(p, np.float64) if np.ndim(p) else float(p) for p in params),
+           float(scale))
+        for kind, params, scale in cd["functions"])
+    return CustomJointDef(
+        n_dofs=int(cd["n_dofs"]),
+        rot_axes=np.asarray(cd["rot_axes"], np.float64),
+        trans_axes=np.asarray(cd["trans_axes"], np.float64),
+        functions=fns,
+        drives=tuple(int(d) for d in cd["drives"]),
+    )
 
 
 def world_from_arrays(spec: dict) -> World:
@@ -89,6 +120,8 @@ def world_from_arrays(spec: dict) -> World:
                     friction=float(sd.get("friction", 1.0)),
                     restitution=float(sd.get("restitution", 0.0)),
                     collidable=bool(sd.get("collidable", True)),
+                    **{k: None if sd.get(k) is None else np.asarray(sd[k], np.float64)
+                       for k in _SHAPE_ARRAYS},
                 )
                 for sd in bd.get("shapes", ())
             )
@@ -105,6 +138,8 @@ def world_from_arrays(spec: dict) -> World:
                 com=np.asarray(bd["com"], dtype=np.float64),
                 inertia=np.asarray(bd["inertia"], dtype=np.float64),
                 shapes=shapes,
+                custom=_custom(jd.get("custom")),
+                props=jd.get("props"),
                 **{k: jd.get(k) for k in _JOINT_VECTORS},
             )
         world.add_skeleton(skel)

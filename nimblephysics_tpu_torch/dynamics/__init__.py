@@ -2,17 +2,23 @@
 
 from nimblephysics_tpu_torch.dynamics.joints import (
     BALL,
+    CONSTANT_CURVE,
+    CONSTANT_CURVE_INCOMPRESSIBLE,
+    CUSTOM,
+    ELLIPSOID_JOINT,
     EULER,
     EULER_FREE,
     FREE,
     PLANAR,
     PRISMATIC,
     REVOLUTE,
+    SCAPULATHORACIC,
     SCREW,
     TRANSLATIONAL,
     TRANSLATIONAL_2D,
     UNIVERSAL,
     WELD,
+    CustomJointDef,
     JointSpec,
 )
 from nimblephysics_tpu_torch.dynamics.shapes import ShapeSpec

@@ -4,10 +4,11 @@ S-dot and position integration.
 Counterpart of nimblephysics_tpu/dynamics/joints.py. Conventions match
 the reference: T_rel(q) = T_pj @ Q(q) @ inv(T_cj), and the child body's
 relative spatial velocity is Ad(T_cj) S(q) qdot. The kinematics of every
-type but the spline-driven ones live in batched/articulated.py (Q as
-rotation factors and translation terms, S and its rate in closed form);
-the functions here run them on a world of one joint, with T_pj = T_cj =
-I, and a batch of one.
+type live in batched/articulated.py (Q as rotation factors and
+translation terms with S and its rate in closed form, or, for the
+spline-driven and biomechanics joints, Q batched with S and its rate by
+forward-mode differentiation); the functions here run them on a world of
+one joint, with T_pj = T_cj = I, and a batch of one.
 """
 
 from __future__ import annotations
@@ -58,12 +59,22 @@ _NUM_DOFS = {
 
 
 def num_dofs(joint_type: str) -> int:
-    if joint_type not in _NUM_DOFS:
-        raise NotImplementedError(
-            f"joint type {joint_type!r}: the spline-driven joints come with "
-            "math/splines.py (ROADMAP queue 1 item 10c)"
-        )
     return _NUM_DOFS[joint_type]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CustomJointDef:
+    """A spline-driven custom joint (OpenSim CustomJoint): six transform
+    axes, three rotations then three translations, each a 1-D function
+    (math/splines.Fn) of one of the joint's coordinates or a constant:
+      R = exp(rot_axes[0] f0) exp(rot_axes[1] f1) exp(rot_axes[2] f2),
+      p = sum_i trans_axes[i] f_{3+i}."""
+
+    n_dofs: int
+    rot_axes: np.ndarray  # (3, 3) rows = axes
+    trans_axes: np.ndarray  # (3, 3)
+    functions: tuple  # 6 x math.splines.Fn
+    drives: tuple  # 6 x int: the coordinate driving each axis (-1 = none)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -87,9 +98,18 @@ class JointSpec:
     position_upper: Optional[np.ndarray] = None
     velocity_limit: Optional[np.ndarray] = None
     force_limit: Optional[np.ndarray] = None
+    custom: Optional[CustomJointDef] = None  # for joint_type == CUSTOM
+    # The biomechanics joints' static parameters:
+    #   ellipsoid/scapulathoracic: radii (3,), euler_order, flip (3|4,),
+    #     winging_axis_offset (2,), winging_axis_direction (scalar)
+    #   constantcurve(incompressible): neutral (3|4,), flip (3,),
+    #     length (incompressible only)
+    props: Optional[dict] = None
 
     @property
     def num_dofs(self) -> int:
+        if self.joint_type == CUSTOM:
+            return self.custom.n_dofs
         return num_dofs(self.joint_type)
 
     def _coeff(self, field, default):

@@ -101,8 +101,12 @@ class Skeleton:
         position_upper: Optional[Sequence] = None,
         velocity_limit: Optional[Sequence] = None,
         force_limit: Optional[Sequence] = None,
+        custom: Optional[J.CustomJointDef] = None,
+        props: Optional[dict] = None,
     ) -> int:
-        """Append a joint and its child body; returns the body index."""
+        """Append a joint and its child body; returns the body index.
+        custom: a CUSTOM joint's definition; props: a biomechanics
+        joint's parameters (JointSpec.props)."""
         idx = len(self.bodies)
         if parent >= idx:
             raise ValueError("parents must be added before children")
@@ -133,6 +137,8 @@ class Skeleton:
             position_upper=_vec(position_upper),
             velocity_limit=_vec(velocity_limit),
             force_limit=_vec(force_limit),
+            custom=custom,
+            props=props,
         )
         if inertia is None:
             inertia = np.eye(3) * 0.1 * mass

@@ -1,6 +1,8 @@
-"""Math layer: Lie-group geometry (lie.py), spatial inertia (spatial.py) and
-the finite-difference oracle (finite_difference.py)."""
+"""Math layer: Lie-group geometry (lie.py), spatial inertia (spatial.py),
+the finite-difference oracle (finite_difference.py) and the 1-D function
+specs of the spline-driven joints (splines.py)."""
 
+from nimblephysics_tpu_torch.math import splines
 from nimblephysics_tpu_torch.math.finite_difference import (
     finite_difference_jacobian,
     ridders_derivative,

@@ -3,7 +3,8 @@
 one NVIDIA GPU.
 
     python3 profile_torch_step.py [--world half_cheetah|box3|box10|box20|
-                                           jump_worm|catapult|single] [--trace PATH]
+                                           jump_worm|catapult|terrain|single]
+                                  [--trace PATH]
 
 Builds the main path of chip_smoke.py with its own functions (4096
 worlds, float32) and traces it with torch.profiler. For the half-cheetah
@@ -20,7 +21,10 @@ untraced steps, TRACED_STEPS traced; box10 and box20 the same for the
 (2048 and 1024). For --world jump_worm or catapult,
 the reference suite's world under the default SolverConfig driven by its
 policy (chip_smoke's make_ref_engine, ref_start and policy_rollout),
-after chip_smoke.STEPS untraced steps. For --world single, the
+after chip_smoke.STEPS untraced steps. For --world terrain, the
+half-cheetah on chip_smoke's heightmap (make_terrain_engine, the default
+SolverConfig) from rollout_start, settled with chip_smoke.STEPS
+untraced steps. For --world single, the
 single-world half-cheetah step (neural.Engine, float64) from the last
 state in contact of chip_smoke's CPU rollout (sw_cpu_rollout),
 TRACED_STEPS steps from that state, and the CUDA launches of each part of
@@ -155,7 +159,7 @@ def profile_single(dev, trace=None):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--world", choices=("half_cheetah", "box3", "box10", "box20")
-                    + chip_smoke.REF_WORLDS + ("single",),
+                    + chip_smoke.REF_WORLDS + ("terrain", "single"),
                     default="half_cheetah")
     ap.add_argument("--trace", help="write Chrome traces to this path")
     args = ap.parse_args()
@@ -186,6 +190,17 @@ def main() -> int:
             f"{args.world}_forward_default",
             lambda: chip_smoke.rollout(eng, carry, u, TRACED_STEPS),
             TRACED_STEPS, args.trace, worlds))
+        print(json.dumps(summaries))
+        return 0
+    if args.world == "terrain":
+        _, q0, v0, eng = chip_smoke.make_terrain_engine(dev)
+        carry, u = chip_smoke.rollout_start(eng, q0, v0, np.random.RandomState(chip_smoke.SEED),
+                                            dev)
+        carry = chip_smoke.rollout(eng, carry, u, chip_smoke.STEPS)
+        torch.cuda.synchronize()
+        summaries.append(profile(
+            "terrain_forward_default", lambda: chip_smoke.rollout(eng, carry, u, TRACED_STEPS),
+            TRACED_STEPS, args.trace))
         print(json.dumps(summaries))
         return 0
     if args.world in chip_smoke.REF_WORLDS:

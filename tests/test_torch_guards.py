@@ -168,22 +168,18 @@ def test_kernel_wrapper_refuses_cpu_tensors_without_launching():
     assert lcp_cuda.apgd_seed.launches == 0
 
 
-@pytest.mark.parametrize(
-    "what", ["joint_type", "pair_kind", "multisphere_pair", "max_contacts"]
-)
-def test_off_slice_options_raise(what):
-    """What the port does not take yet raises, naming its ROADMAP item:
-    the spline-driven joint types (an ellipsoid joint); mesh, heightmap
-    and multisphere pairs (a mesh, and a sphere set, against the ground);
-    and World.max_contacts below the slot count."""
-    from nimblephysics_tpu_torch.batched import BatchedEngine
+def _cheetah_with(what):
+    """The half-cheetah (throughput()) with one more skeleton: an
+    ellipsoid joint ("joint_type"), a mesh with no vertices
+    ("pair_kind", which collides with nothing, as in the JAX package) or
+    a one-sphere set ("multisphere_pair") on a vertical slider over the
+    ground; or with World.max_contacts below its 16 slots."""
     from nimblephysics_tpu_torch.dynamics import PRISMATIC, ShapeSpec, Skeleton
     from nimblephysics_tpu_torch.models import half_cheetah
     from nimblephysics_tpu_torch.simulation import SolverConfig
 
     world, _, _ = half_cheetah()
     world.solver = SolverConfig.throughput()
-    kw = dict(device="cpu", dtype=torch.float64)
     if what == "joint_type":
         arm = Skeleton("arm")
         arm.add_joint_and_body("ellipsoid")
@@ -191,17 +187,44 @@ def test_off_slice_options_raise(what):
     elif what in ("pair_kind", "multisphere_pair"):
         kind, size = (("mesh", np.zeros((4, 3))) if what == "pair_kind"
                       else ("multisphere", np.array([[0.0, 0.0, 0.0, 0.1]])))
+        spheres = size if kind == "multisphere" else None
         rock = Skeleton("rock")
-        rock.add_joint_and_body(PRISMATIC, axis=[0, 1, 0], shapes=(ShapeSpec(kind, size),))
+        rock.add_joint_and_body(PRISMATIC, axis=[0, 1, 0],
+                                shapes=(ShapeSpec(kind, size, spheres=spheres),))
         world.add_skeleton(rock)
     elif what == "max_contacts":
         world.max_contacts = 4  # of the cheetah's 16 slots
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchedEngine(world, **kw)
+    return world
+
+
+@pytest.mark.parametrize("what", ["joint_type", "pair_kind", "multisphere_pair"])
+def test_new_slice_worlds_build_and_step(what):
+    """The worlds that raised before the spline joints, meshes and sphere
+    sets came build and step in both engines: a finite step."""
+    from nimblephysics_tpu_torch.batched import BatchedEngine
     from nimblephysics_tpu_torch.neural import Engine
 
+    world = _cheetah_with(what)
+    nv = world.num_dofs
+    x = torch.zeros(nv, 2, dtype=torch.float64)
+    r = BatchedEngine(world, device="cpu", dtype=torch.float64).step(x, x, x)
+    assert torch.isfinite(r.q).all() and torch.isfinite(r.v).all()
+    s = Engine(world, device="cpu").step(x[:, 0], x[:, 0], x[:, 0])
+    assert torch.isfinite(s.v).all()
+    torch.testing.assert_close(s.v, r.v[:, 0], atol=1e-12, rtol=0)
+
+
+@pytest.mark.parametrize("what", ["max_contacts"])
+def test_off_slice_options_raise(what):
+    """What the port does not take yet raises, naming its ROADMAP item:
+    World.max_contacts below the slot count."""
+    from nimblephysics_tpu_torch.batched import BatchedEngine
+    from nimblephysics_tpu_torch.neural import Engine
+
+    world = _cheetah_with(what)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        BatchedEngine(world, device="cpu", dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng = Engine(world, device="cpu")
-        # A joint type is refused where its kinematics first run.
         x = torch.zeros(world.num_dofs, dtype=torch.float64)
         eng.step(x, x, x)

@@ -37,6 +37,14 @@ def dump_world(world) -> dict:
                 position_upper=j.position_upper,
                 velocity_limit=j.velocity_limit,
                 force_limit=j.force_limit,
+                props=j.props,
+                custom=None if j.custom is None else dict(
+                    n_dofs=j.custom.n_dofs,
+                    rot_axes=np.asarray(j.custom.rot_axes),
+                    trans_axes=np.asarray(j.custom.trans_axes),
+                    drives=list(j.custom.drives),
+                    functions=[(f.kind, f.params, f.scale) for f in j.custom.functions],
+                ),
             )
             for j, b in zip(s.joints, s.bodies)
         ]
@@ -53,6 +61,9 @@ def dump_world(world) -> dict:
                         friction=sh.friction,
                         restitution=sh.restitution,
                         collidable=sh.collidable,
+                        mesh_vertices=sh.mesh_vertices,
+                        heights=sh.heights,
+                        spheres=sh.spheres,
                     )
                     for sh in b.shapes
                 ],
