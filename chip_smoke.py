@@ -33,7 +33,7 @@ Phases (any failure exits non-zero and prints no result line):
      then the 100-step warm-started rollout at this config;
   7. training: train_step_batched (4096 worlds, horizon 100, hidden 64,
      float32) under the default config and under throughput(), one
-     warm-up call and one timed call each, with the kernel's launches,
+     warm-up call (horizon 10) and one timed call each, with the kernel's launches,
      seconds per training step, fwd+bwd env-steps/s and peak memory;
   8. one short training step (64 worlds, horizon 4) on the card against
      the port's float64 CPU path from the same start and weights: the
@@ -124,10 +124,39 @@ Phases (any failure exits non-zero and prints no result line):
      four biomechanics joints; the single-world step in float64 on a heightmap
      and on the custom joint, card vs CPU; a state Jacobian across a live
      heightmap contact against Ridders FD on the card;
+ 24. trajectory optimisation (trajectory/, float64, card vs CPU at 1e-8):
+     a half-cheetah MultiShot of 2 shots x 5 steps from phase 20's
+     rollout state 90 (live contact rows) under its controls: loss, knot
+     constraints, the loss gradient, the per-step constraint and
+     final-state Jacobians, with a planted fault (the first shot's A_t and
+     B_t without the contact rows' gradient); ms of the rollout, the
+     gradient and the per-step Jacobians, CUDA launches of a shot and of
+     one step's Jacobians; Gauss-Newton, 2 outer x 2 inner
+     iterations on 2 x 2 steps; the cartpole's augmented Lagrangian (2 x 3
+     iterations) and its ms a step with the gradient;
+ 25. MPC and SSID (realtime/, float64, card vs CPU at 1e-8): the cartpole
+     MPC loop of examples/04_mpc.py (8 control steps; horizon 5, 3 Adam
+     iterations a replan) moving the cart toward its target, and its
+     replan thread started and stopped; SSID recovering the heavier
+     cart's mass (8-step window, 15 iterations, within 8%); one
+     half-cheetah optimize_plan (horizon 5, 2 iterations), with a planted
+     fault (the CPU's replan with the impulses detached) that must miss;
+ 26. BatchedEnv (simulation/env.py) over the half-cheetah, the default
+     config, float32, 4096 worlds: 50 env steps with the horizon at 25
+     (every world resets at steps 25 and 50), env-steps/s, one K1b launch
+     a step and never the plain seed, CUDA launches an env step; K1 and
+     K1b on the env's LCP against the plain version with a dropped
+     contact that must miss; one env step on every world by step_check;
+     the gradient of a linear policy's 5-step return at 64 worlds, card
+     f32 vs CPU f64;
   then a JSON line per kernel and, last, {"ok": true, "device": ...}.
+A timed training step is preceded by a warm-up training step of
+WARMUP_STEPS steps, and phase 6's timed rollout by WARMUP_STEPS steps;
+phase 20 times its float64 card step over SW_F64_TIMED steps. Each phase
+prints the seconds since the start when it ends.
 
-`python3 chip_smoke.py --only 9,18,19,20,21,22,23` runs phases 1-2 and
-the listed ones of 9 and 18 to 23, and prints no result line (for
+`python3 chip_smoke.py --only 9,18,19,20,21,22,23,24,25,26` runs phases
+1-2 and the listed ones of 9 and 18 to 26, and prints no result line (for
 iterating on them).
 
 Matmuls run in full float32: TF32 is switched off for matmuls and cuDNN,
@@ -142,6 +171,7 @@ the profiler (profile_torch_step.py) imports them from here.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib
 import json
 import re
@@ -156,6 +186,12 @@ import torch
 
 BATCH = 4096
 STEPS = 100
+# The horizon of the training step before a timed one, and the steps before
+# a timed rollout whose final state no later check reads: they warm the
+# allocator and the kernel's first launch (eager PyTorch has nothing to
+# compile). Phases 4, 15 and 22 keep STEPS warm-up steps: phases 5, 17 and
+# 22's step_check read the settled state after them.
+WARMUP_STEPS = 10
 SEED = 0
 CHECK_WORLDS = 256
 # Peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet): float32
@@ -482,12 +518,12 @@ def rollout(eng, carry, u, steps, body_params=None):
     return q, v, z
 
 
-def timed_rollout(eng, carry, u, label):
-    """STEPS warm-up steps, then STEPS timed ones with the kernel's
+def timed_rollout(eng, carry, u, label, warmup=STEPS):
+    """`warmup` warm-up steps, then STEPS timed ones with the kernel's
     launches counted; checks the state and prints the forward cell."""
     from nimblephysics_tpu_torch.batched import lcp_cuda
 
-    carry = rollout(eng, carry, u, STEPS)  # warm-up, as bench.py's first call
+    carry = rollout(eng, carry, u, warmup)
     torch.cuda.synchronize()
     lcp_cuda.apgd_seed.launches = 0
     t0 = time.perf_counter()
@@ -587,7 +623,7 @@ def phase6(dev, q, v, u, random_lcp):
     kernel_shapes("phase 6 (K1b)", meta, inputs["engine_lcp"], sweeps, PGS_TOL, dev)
     rng = np.random.RandomState(SEED)
     carry, uu = rollout_start(eng, q0, v0, rng, dev)
-    _, launches = timed_rollout(eng, carry, uu, "phase 6 (default config)")
+    _, launches = timed_rollout(eng, carry, uu, "phase 6 (default config)", WARMUP_STEPS)
     return {
         "name": "apgd_seed_pgs",
         "route": "cuda",
@@ -638,9 +674,8 @@ def phase7(dev):
         states, weights = train_start(q0, v0, np.random.RandomState(SEED + 1), dev)
         policy = policy_from_arrays(*weights, device=dev)
         train = train_step_batched(eng, policy, TRAIN_HORIZON, LEARNING_RATE)
-        first = train(states)  # warm-up
+        first = train_step_batched(eng, policy, WARMUP_STEPS, LEARNING_RATE)(states)  # warm-up
         torch.cuda.synchronize()
-        grads[label] = policy_grad(policy).clone()
         torch.cuda.reset_peak_memory_stats(dev)
         lcp_cuda.apgd_seed.launches = 0
         t0 = time.perf_counter()
@@ -649,13 +684,13 @@ def phase7(dev):
         dt_s = time.perf_counter() - t0
         launches[label] = lcp_cuda.apgd_seed.launches
         peak = torch.cuda.max_memory_allocated(dev)
-        g = policy_grad(policy)
+        g = grads[label] = policy_grad(policy).clone()
         print(f"phase 7 ({label}): {BATCH} worlds x horizon {TRAIN_HORIZON}, "
               f"hidden {HIDDEN}: {dt_s:.3f} s/training step, "
               f"{BATCH * TRAIN_HORIZON / dt_s:.1f} fwd+bwd env-steps/s; kernel "
               f"launches {launches[label]}; peak memory {peak / 2**20:.1f} MiB; "
-              f"loss {float(first.loss):.6f} -> {float(res.loss):.6f}; "
-              f"|grad| {float(g.norm()):.4e}")
+              f"loss {float(res.loss):.6f} (after a {WARMUP_STEPS}-step warm-up step "
+              f"at {float(first.loss):.6f}); |grad| {float(g.norm()):.4e}")
         check(launches[label] == TRAIN_HORIZON,
               f"kernel launched {launches[label]} times in a {TRAIN_HORIZON}-step training step")
         check(bool(torch.isfinite(res.loss)) and bool(torch.isfinite(g).all()),
@@ -1650,7 +1685,8 @@ def torque_check(dev):
 
 def phase16(dev):
     """train_step_batched on jump_worm and catapult at BATCH worlds, horizon
-    REF_HORIZON: one warm-up call and one timed call each."""
+    REF_HORIZON: one warm-up call (horizon WARMUP_STEPS) and one timed call
+    each."""
     from nimblephysics_tpu_torch.batched import lcp_cuda
     from nimblephysics_tpu_torch.parallel import train_step_batched
 
@@ -1660,7 +1696,7 @@ def phase16(dev):
         (q, v, _), policy = ref_start(eng, q0, v0, np.random.RandomState(SEED + 160 + i), dev)
         states = torch.cat([q, v])
         train = train_step_batched(eng, policy, REF_HORIZON, LEARNING_RATE)
-        first = train(states)
+        first = train_step_batched(eng, policy, WARMUP_STEPS, LEARNING_RATE)(states)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         lcp_cuda.apgd_seed.launches = 0
@@ -1674,8 +1710,9 @@ def phase16(dev):
         print(f"phase 16 ({name}): {BATCH} worlds x horizon {REF_HORIZON}, hidden "
               f"{HIDDEN}: {dt_s:.3f} s/training step, {BATCH * REF_HORIZON / dt_s:.1f} "
               f"fwd+bwd env-steps/s; K1b launches {launches}; peak memory "
-              f"{peak / 2**20:.1f} MiB; loss {float(first.loss):.6f} -> "
-              f"{float(res.loss):.6f}; |grad| {float(g.norm()):.4e}")
+              f"{peak / 2**20:.1f} MiB; loss {float(res.loss):.6f} (after a "
+              f"{WARMUP_STEPS}-step warm-up step at {float(first.loss):.6f}); |grad| "
+              f"{float(g.norm()):.4e}")
         check(launches == REF_HORIZON,
               f"{name}: K1b launched {launches} times in a {REF_HORIZON}-step training step")
         check(bool(torch.isfinite(res.loss)) and bool(torch.isfinite(g).all()),
@@ -2067,6 +2104,9 @@ def phase19(dev):
 # to F^T's null space; the pinned solve returns z in the row space of its
 # clamping rows, so that part holds to the same limit.
 SW_STEPS = 100
+# The card's float64 rollout is only timed (its float32 one is held to the
+# CPU): SW_F64_TIMED steps.
+SW_F64_TIMED = 10
 # The states compared: every SW_EVERY-th, from the fifth (the feet land
 # near step 60; on the two-row contacts before step 84 the seed alone is
 # often exact, so only states with more live rows can tell it).
@@ -2264,7 +2304,8 @@ def phase20(dev, smi):
     # step.
     f32 = Engine(world, device=dev, dtype=torch.float32)
     times, finals = {}, {}
-    for label, eng, dtype in (("float64", card, torch.float64), ("float32", f32, torch.float32)):
+    for label, eng, dtype, steps in (("float64", card, torch.float64, SW_F64_TIMED),
+                                     ("float32", f32, torch.float32, SW_STEPS)):
         s = sw_on(dev, states[0], dtype)
         ut = sw_on(dev, us, dtype)
         for _ in range(3):  # warm-up
@@ -2272,7 +2313,7 @@ def phase20(dev, smi):
         torch.cuda.synchronize()
         seen, deep = [], 0.0
         t0 = time.perf_counter()
-        for k in range(SW_STEPS):
+        for k in range(steps):
             if k % SW_EVERY == SW_EVERY // 2:
                 seen.append((k, s))
             r = eng.step(s[0], s[1], ut[k], z_warm=s[2])
@@ -2280,7 +2321,7 @@ def phase20(dev, smi):
             if dtype == torch.float32:
                 deep = torch.maximum(torch.as_tensor(deep, device=dev), r.contact_depths.max())
         torch.cuda.synchronize()
-        times[label] = (time.perf_counter() - t0) / SW_STEPS * 1e3
+        times[label] = (time.perf_counter() - t0) / steps * 1e3
         finals[label] = (s, seen, float(deep))
     launches = count_launches(lambda: card.step(*sw_on(dev, states[-1][:2]), us[-1].to(dev),
                                                 z_warm=states[-1][2].to(dev)))
@@ -2908,6 +2949,504 @@ def phase23(dev):
     print(f"phase 23: {time.perf_counter() - t0:.1f} s")
 
 
+# -- the layers on top of the step: trajectory optimisation, MPC and SSID,
+# BatchedEnv (phases 24-26) -------------------------------------------------
+
+# Phase 24's half-cheetah MultiShot: TRAJ_SHOTS shots of TRAJ_LEN steps
+# from sw_cpu_rollout's state before step TRAJ_START (bench.py's start
+# under the seeded control of phase 20; four live contact rows a step),
+# the rollout's own controls and its state before step TRAJ_START +
+# TRAJ_LEN as the knot; Gauss-Newton on TRAJ_GN_LEN-step shots. Card vs
+# CPU in float64 at phase 21's SW_VJP (1e-8 of 1 + max|.|). Set before any
+# reading of phases 24-26.
+TRAJ_START = 90
+TRAJ_SHOTS = 2
+TRAJ_LEN = 5
+TRAJ_GN_LEN = 2
+TRAJ_GN_ITERS = (2, 2)  # outer, inner
+# The cartpole (action on the cart) at a time step of 0.05: a MultiShot of
+# CART_STEPS steps in shots of CART_SHOT, augmented Lagrangian AL_ITERS
+# (outer, inner) at AL_LR, card vs CPU at SW_VJP.
+CART_DT = 0.05
+CART_STEPS = 6
+CART_SHOT = 3
+AL_ITERS = (2, 3)
+AL_LR = 0.2
+# Phase 25: MPC on the cartpole (examples/04_mpc.py's loss and learning
+# rate), MPC_STEPS control steps replanning MPC_ITERS Adam iterations over
+# MPC_HORIZON steps; SSID on an SSID_WINDOW-step window of the heavier
+# cart (tests/test_realtime.py:93, rtol SSID_RTOL) for SSID_ITERS
+# iterations at SSID_LR (the JAX test: 15 steps, 150 iterations at 0.08);
+# one half-cheetah optimize_plan of MPC_HC (horizon, iterations). Card vs
+# CPU at SW_VJP.
+MPC_STEPS = 8
+MPC_HORIZON = 5
+MPC_ITERS = 3
+MPC_LR = 0.3
+MPC_TARGET = 0.4
+MPC_HC = (5, 2)
+SSID_WINDOW = 8
+SSID_ITERS = 15
+SSID_LR = 0.12
+SSID_RTOL = 0.08
+# Phase 26: BatchedEnv over the half-cheetah, the default config, float32,
+# BATCH worlds, ENV_STEPS steps with the horizon at ENV_HORIZON; the
+# gradient of a linear policy's ENV_GRAD_STEPS-step return at GRAD_WORLDS
+# worlds, card f32 vs CPU f64 at phase 8's GRAD_COS / GRAD_REL.
+ENV_STEPS = 50
+ENV_HORIZON = 25
+ENV_DROP = 0.25
+ENV_GRAD_STEPS = 5
+
+
+def cart_world(dt=None):
+    """The cartpole with the action on the cart (at time step dt)."""
+    from nimblephysics_tpu_torch.models import cartpole
+
+    world, _, _ = cartpole()
+    world.set_action_space([0])
+    if dt is not None:
+        world.time_step = dt
+    return world
+
+
+def traj_rel(a, b):
+    """|a - b| / (1 + max|b|), b the CPU's."""
+    a, b = torch.as_tensor(a).detach().cpu().double(), torch.as_tensor(b).detach().cpu().double()
+    return float((a - b).abs().max() / (1.0 + b.abs().max())) if b.numel() else 0.0
+
+
+@functools.lru_cache(maxsize=1)
+def sw_states():
+    """sw_cpu_rollout's world, controls and states, run once for phases
+    24-25."""
+    world, us, _, states, _, _, _ = sw_cpu_rollout()
+    return world, us, states
+
+
+def traj_problems(dev, shot_len):
+    """The half-cheetah MultiShot (TRAJ_SHOTS shots of shot_len steps) on
+    the CPU and on `dev`, and its x (numpy): sw_cpu_rollout's state before
+    step TRAJ_START, its controls, its state before TRAJ_START + shot_len
+    as the knot, moved by a seeded 1e-4 in q and 1e-2 in v (the knot
+    constraints then read ~1e-2)."""
+    from nimblephysics_tpu_torch.trajectory import MultiShot
+
+    world, us, states = sw_states()
+    idx = torch.as_tensor(world.action_indices.astype(np.int64))
+    k, steps = TRAJ_START, TRAJ_SHOTS * shot_len
+    start = torch.cat(states[k][:2]).numpy()
+    rng = np.random.RandomState(SEED + 24)
+    nv = world.num_dofs
+    knots = [torch.cat(states[k + i * shot_len][:2]).numpy()
+             + np.r_[1e-4 * rng.randn(nv), 1e-2 * rng.randn(nv)] for i in range(1, TRAJ_SHOTS)]
+    forces = torch.stack([u[idx] for u in us[k : k + steps]]).numpy()
+    x = np.concatenate(knots + [forces.reshape(-1)])
+
+    def loss(ro):
+        return torch.sum(ro.vels[-1] ** 2) + 1e-3 * torch.sum(ro.forces ** 2)
+
+    probs = [MultiShot(world, loss, steps, shot_len, start_state=start, device=d)
+             for d in ("cpu", dev)]
+    return world, probs, x
+
+
+def first_control(prob, x):
+    """The control of a MultiShot's first step at x."""
+    na = prob.world.action_size
+    forces = prob.tensor(x)[len(x) - prob.steps * na :]
+    return prob.world.action_to_forces(forces[:na])
+
+
+def traj_readings(prob, x, ms=None):
+    """loss, constraints, the loss gradient, the per-step constraint and
+    final-state Jacobians of a MultiShot at x; ms, if given, gets the
+    milliseconds of the rollout (loss and knots), the gradient and the
+    per-step Jacobians."""
+    from nimblephysics_tpu_torch.trajectory.optimizers import value_and_grad
+
+    def timed(label, fn):
+        if prob.device.type == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        if prob.device.type == "cuda":
+            torch.cuda.synchronize()
+        if ms is not None:
+            ms[label] = (time.perf_counter() - t1) * 1e3
+        return out
+
+    xt = prob.tensor(x)
+    with torch.no_grad():
+        loss, cons = timed("rollout", lambda: prob.loss_and_constraints(xt))
+    _, grad = timed("gradient", lambda: value_and_grad(prob.loss, xt))
+    jac = timed("Jacobians", lambda: prob.constraint_jacobian_scan(xt))
+    return dict(loss=loss, constraints=cons, grad=grad, jac_scan=jac,
+                final_jac=prob.final_state_jacobian(xt))
+
+
+def first_shot_cut(boxed_lcp, calls):
+    """boxed_lcp with its impulses detached for the first `calls` calls:
+    the planted faults of phase 24 (the first shot's A_t and B_t taken
+    without the contact rows' gradient) and 25 (a replan's)."""
+    n = [0]
+
+    def cut(*args, **kw):
+        n[0] += 1
+        z = boxed_lcp(*args, **kw)
+        return z.detach() if n[0] <= calls else z
+
+    return cut
+
+
+def phase24(dev, smi):
+    """Trajectory optimisation on the card in float64 against the CPU
+    (module docstring)."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+    from nimblephysics_tpu_torch.neural import BackpropSnapshot
+    from nimblephysics_tpu_torch.trajectory import (
+        AugmentedLagrangianOptimizer,
+        GaussNewtonOptimizer,
+        MultiShot,
+        TerminalResiduals,
+    )
+
+    ts_mod = importlib.import_module("nimblephysics_tpu_torch.neural.timestep")
+    t0 = time.perf_counter()
+    launches0 = lcp_cuda.apgd_seed.launches
+    world, (cpu, card), x = traj_problems(dev, TRAJ_LEN)
+    nv = world.num_dofs
+    ms = {}
+    want, got = traj_readings(cpu, x), traj_readings(card, x, ms)
+    d = {k: traj_rel(got[k], want[k]) for k in want}
+    _, (faulty, _), _ = traj_problems("cpu", TRAJ_LEN)
+    with mock.patch.object(ts_mod, "boxed_lcp", first_shot_cut(ts_mod.boxed_lcp, TRAJ_LEN)):
+        fault = traj_rel(faulty.constraint_jacobian_scan(faulty.tensor(x)), got["jac_scan"])
+    with torch.no_grad():
+        rows = int((cpu.engine.step(*cpu.start_state.split(nv), first_control(cpu, x))
+                    .impulses.abs() > 0).sum())
+    print(f"phase 24 (half-cheetah MultiShot {TRAJ_SHOTS} x {TRAJ_LEN}, {rows} live rows in "
+          f"its first step): card vs CPU float64, |d|/(1+max|.|): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in d.items())
+          + f" (bound {SW_VJP:g}); planted fault (the first shot's A_t, B_t without the "
+          f"contact rows) {fault:.3e} (must exceed {SW_VJP:g}); loss "
+          f"{float(want['loss']):.6e}, max|h| {float(want['constraints'].abs().max()):.3e}; "
+          f"at {time.perf_counter() - t0:.1f} s")
+    check(rows > 0, "the MultiShot's first step has no live contact row")
+    check(max(d.values()) <= SW_VJP, "the card's trajectory readings disagree with the CPU")
+    check(fault > SW_VJP, "the limit cannot tell a shot's Jacobians without contact rows")
+
+    # Launches: the first shot's rollout and one step's A_t, B_t.
+    xt, s0, u0 = card.tensor(x), card.start_state, first_control(card, x)
+
+    def shot():
+        with torch.no_grad():
+            card._states(s0, card._split(xt)[1][0])
+
+    def step_jac():
+        snap = BackpropSnapshot(world, s0[:nv], s0[nv:], u0)
+        snap.get_state_jacobian()
+        snap.get_action_jacobian()
+
+    steps = TRAJ_SHOTS * TRAJ_LEN
+    print(f"phase 24 (costs): {smi}: float64 half-cheetah, the {steps}-step MultiShot "
+          f"rollout (loss and knots) {ms['rollout']:.1f} ms, {count_launches(shot)} CUDA "
+          f"launches a shot of {TRAJ_LEN} steps; the loss gradient {ms['gradient']:.1f} ms; "
+          f"the per-step Jacobians "
+          f"(a BackpropSnapshot a step, one batched reverse pass each) "
+          f"{ms['Jacobians']:.1f} ms, {ms['Jacobians'] / steps:.1f} ms a step, "
+          f"{count_launches(step_jac)} launches a step")
+
+    # Gauss-Newton, TRAJ_GN_ITERS, on TRAJ_GN_LEN-step shots.
+    runs = {}
+    _, probs, xg = traj_problems(dev, TRAJ_GN_LEN)
+    for label, prob in zip(("cpu", "card"), probs):
+        res = TerminalResiduals(prob, lambda f, u: torch.cat([f[nv:], 0.03 * u.reshape(-1)]))
+        calls = []
+        sol = GaussNewtonOptimizer(*TRAJ_GN_ITERS).optimize(
+            prob, res, x0=xg, structured_jacobian=True,
+            callback=lambda k, f, viol: calls.append((f, viol)))
+        runs[label] = (sol, calls)
+    (cs, cc), (gs, gc) = runs["cpu"], runs["card"]
+    gn = max([traj_rel(gs.x, cs.x), traj_rel(gs.loss_history, cs.loss_history)]
+             + [traj_rel([a[0], a[1]], [b[0], b[1]]) for a, b in zip(gc, cc)])
+    print(f"phase 24 (Gauss-Newton, {TRAJ_SHOTS} x {TRAJ_GN_LEN} steps, {TRAJ_GN_ITERS[0]} "
+          f"outer x {TRAJ_GN_ITERS[1]} inner): loss {cc[0][0]:.6e} -> {cs.loss:.6e}, knot "
+          f"violation {cc[0][1]:.3e} -> {cs.constraint_violation:.3e}; card vs CPU (x, loss "
+          f"history, outer losses and violations) {gn:.3e} (bound {SW_VJP:g}); at "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(len(gc) == len(cc) == TRAJ_GN_ITERS[0], "Gauss-Newton outer iterations")
+    check(gn <= SW_VJP, "the card's Gauss-Newton run disagrees with the CPU's")
+
+    # The cartpole's augmented Lagrangian, card vs CPU.
+    runs = {}
+    for label, d_ in (("cpu", "cpu"), ("card", dev)):
+        w = cart_world(CART_DT)
+
+        def loss(ro):
+            qf, vf = ro.poses[-1], ro.vels[-1]
+            return (10.0 * (qf[0] - 0.3) ** 2 + 0.1 * vf[0] ** 2
+                    + 1e-5 * torch.sum(ro.forces ** 2))
+
+        prob = MultiShot(w, loss, CART_STEPS, CART_SHOT, device=d_)
+        x0 = prob.initial_guess([0.0, 0.1, 0.0, 0.0])
+        calls = []
+        t1 = time.perf_counter()
+        sol = AugmentedLagrangianOptimizer(*AL_ITERS, learning_rate=AL_LR).optimize(
+            prob, x0, callback=lambda k, f, viol, xx: calls.append((f, viol, xx)))
+        torch.cuda.synchronize()
+        runs[label] = (sol, calls, time.perf_counter() - t1)
+    (cs, cc, _), (gs, gc, g_s) = runs["cpu"], runs["card"]
+    al = max(max(traj_rel(g[2], c[2]), traj_rel(g[:2], c[:2])) for g, c in zip(gc, cc))
+    grads = AL_ITERS[0] * AL_ITERS[1] * CART_STEPS
+    print(f"phase 24 (cartpole augmented Lagrangian, {CART_STEPS} steps at dt {CART_DT}, "
+          f"{AL_ITERS[0]} outer x {AL_ITERS[1]} inner): knot violation "
+          + " -> ".join(f"{c[1]:.3e}" for c in cc)
+          + f"; card vs CPU (iterates, losses, violations) {al:.3e} (bound {SW_VJP:g}); "
+          f"{g_s:.2f} s on the card, {g_s / grads * 1e3:.1f} ms a step with its gradient")
+    check(al <= SW_VJP, "the card's augmented Lagrangian run disagrees with the CPU's")
+    check(lcp_cuda.apgd_seed.launches == launches0, "the single-world path launched the seed")
+    print(f"phase 24: {time.perf_counter() - t0:.1f} s")
+
+
+def mpc_loop(dev):
+    """examples/04_mpc.py's loop on the cartpole: MPC_STEPS control steps,
+    each recording the state, replanning and stepping under the plan's
+    first force. Returns (the states, the plans)."""
+    from nimblephysics_tpu_torch.realtime import MPCLocal
+
+    world = cart_world()
+
+    def loss(poses, vels, forces):
+        return (10.0 * torch.sum((poses[-1, 0] - MPC_TARGET) ** 2)
+                + 0.1 * torch.sum(vels[-1] ** 2) + 1e-5 * torch.sum(forces ** 2))
+
+    mpc = MPCLocal(world, loss, horizon_steps=MPC_HORIZON, replan_iterations=MPC_ITERS,
+                   learning_rate=MPC_LR, device=dev)
+    state = torch.zeros(4, dtype=torch.float64, device=dev)
+    t, states, plans = 0.0, [], []
+    for _ in range(MPC_STEPS):
+        mpc.record_ground_truth_state(t, state.cpu().numpy())
+        mpc.optimize_plan(t)
+        plans.append(mpc.buffer.get_plan_copy()[1])
+        u = mpc.get_force(t)
+        with torch.no_grad():
+            state = mpc.engine.state_step(state, torch.as_tensor(u, device=dev))
+        t += world.time_step
+        states.append(state.cpu().numpy())
+    return mpc, np.stack(states), np.stack(plans)
+
+
+def ssid_fit(dev):
+    """SSID on the heavier cart (tests/test_realtime.py:93's data, stepped on
+    `dev`): the fitted masses."""
+    from nimblephysics_tpu_torch.realtime import SSID
+
+    world = cart_world()
+    ssid = SSID(world, window_steps=SSID_WINDOW, fit_iterations=SSID_ITERS,
+                learning_rate=SSID_LR, device=dev)
+    f64 = dict(dtype=torch.float64, device=dev)
+    heavy = torch.tensor([12.0, 4.8953899], **f64)
+    rng = np.random.RandomState(0)
+    state, t = torch.tensor([0.0, 0.2, 0.0, 0.0], **f64), 0.0
+    ssid.register_sensors(t, state.cpu().numpy())
+    with torch.no_grad():
+        for _ in range(SSID_WINDOW):
+            u = torch.as_tensor(rng.randn(1) * 4.0, **f64)
+            ssid.register_controls(t, u.cpu().numpy())
+            state = ssid.engine.state_step(state, u, heavy)
+            t += world.time_step
+            ssid.register_sensors(t, state.cpu().numpy())
+    return ssid.run_inference()
+
+
+def phase25(dev, smi):
+    """MPC and SSID on the card in float64 against the CPU (module
+    docstring)."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+    from nimblephysics_tpu_torch.realtime import MPCLocal
+
+    t0 = time.perf_counter()
+    launches0 = lcp_cuda.apgd_seed.launches
+    _, cpu_states, cpu_plans = mpc_loop("cpu")
+    t1 = time.perf_counter()
+    mpc, states, plans = mpc_loop(dev)
+    loop_s = time.perf_counter() - t1
+    d = max(traj_rel(states, cpu_states), traj_rel(plans, cpu_plans))
+    x0, x1 = 0.0, float(states[-1, 0])
+    print(f"phase 25 (MPC, cartpole): {MPC_STEPS} control steps, horizon {MPC_HORIZON}, "
+          f"{MPC_ITERS} Adam iterations a replan: cart x {x0:.4f} -> {x1:.6f} (target "
+          f"{MPC_TARGET}); card vs CPU plans and states {d:.3e} (bound {SW_VJP:g}); "
+          f"{loop_s:.2f} s on the card, {loop_s / MPC_STEPS:.3f} s a control step")
+    check(abs(x1 - MPC_TARGET) < abs(x0 - MPC_TARGET), "MPC did not move the cart toward its target")
+    check(d <= SW_VJP, "the card's MPC plans disagree with the CPU's")
+    # The replan thread on the card: it replans, and stop() ends it.
+    count = mpc._replan_count
+    mpc.start()
+    deadline = time.monotonic() + 120.0
+    while mpc._replan_count == count and time.monotonic() < deadline:
+        time.sleep(0.05)
+    mpc.stop()
+    check(mpc._replan_count > count and mpc._thread is None, "the replan thread did not replan")
+
+    cpu_m = ssid_fit("cpu")
+    t1 = time.perf_counter()
+    m = ssid_fit(dev)
+    ssid_s = time.perf_counter() - t1
+    dm = traj_rel(m, cpu_m)
+    err = abs(m[0] / 12.0 - 1.0)
+    print(f"phase 25 (SSID, cartpole): {SSID_WINDOW}-step window, {SSID_ITERS} iterations: "
+          f"cart mass 9.4248 -> {m[0]:.4f} (true 12.0, rel {err:.3e}, bound {SSID_RTOL}); card "
+          f"vs CPU {dm:.3e} (bound {SW_VJP:g}); {ssid_s:.2f} s on the card")
+    check(err <= SSID_RTOL, "SSID did not recover the cart mass on the card")
+    check(dm <= SW_VJP, "the card's SSID fit disagrees with the CPU's")
+
+    # One half-cheetah replan, card vs CPU, from phase 24's start; the
+    # planted fault: the CPU's replan with the impulses detached.
+    world, _, rstates = sw_states()
+    start = torch.cat(rstates[TRAJ_START][:2]).numpy()
+    ts_mod = importlib.import_module("nimblephysics_tpu_torch.neural.timestep")
+    plans = {}
+    for label, d_ in (("cpu", "cpu"), ("card", dev), ("cut", "cpu")):
+        mpc = MPCLocal(world, lambda p, v, f: torch.sum(v[-1] ** 2) + 1e-3 * torch.sum(f ** 2),
+                       horizon_steps=MPC_HC[0], replan_iterations=MPC_HC[1],
+                       learning_rate=MPC_LR, device=d_)
+        mpc.record_ground_truth_state(0.0, start)
+        cut = first_shot_cut(ts_mod.boxed_lcp, sys.maxsize if label == "cut" else 0)
+        t1 = time.perf_counter()
+        with mock.patch.object(ts_mod, "boxed_lcp", cut):
+            mpc.optimize_plan(0.0)
+        plans[label] = (mpc.buffer.get_plan_copy()[1], time.perf_counter() - t1)
+    dp = traj_rel(plans["card"][0], plans["cpu"][0])
+    fault = traj_rel(plans["card"][0], plans["cut"][0])
+    print(f"phase 25 (MPC, half-cheetah): one optimize_plan, horizon {MPC_HC[0]}, "
+          f"{MPC_HC[1]} iterations: card vs CPU plan {dp:.3e} (bound {SW_VJP:g}); planted "
+          f"fault (the CPU's replan with the impulses detached) {fault:.3e} (must exceed "
+          f"{SW_VJP:g}); max|plan| {float(np.abs(plans['cpu'][0]).max()):.4e}; {smi}: "
+          f"{plans['card'][1]:.2f} s on the card, {plans['cpu'][1]:.2f} s on the CPU")
+    check(dp <= SW_VJP, "the card's half-cheetah plan disagrees with the CPU's")
+    check(fault > SW_VJP, "the limit cannot tell a replan without contact gradients")
+    check(lcp_cuda.apgd_seed.launches == launches0, "the single-world path launched the seed")
+    print(f"phase 25: {time.perf_counter() - t0:.1f} s")
+
+
+def make_env(dev, worlds, dtype=torch.float32, horizon=ENV_HORIZON):
+    """BatchedEnv over the half-cheetah (default config): reward the
+    root's forward speed less effort; reset to the model's pose with the
+    feet at the ground (phase 3's root height, less ENV_DROP) jittered by
+    +-2 cm from the env's generator."""
+    from nimblephysics_tpu_torch.models import half_cheetah
+    from nimblephysics_tpu_torch.simulation import BatchedEnv
+
+    world, q0, v0 = half_cheetah()
+    nv = world.num_dofs
+    t = dict(dtype=dtype, device=dev)
+    base = torch.as_tensor(np.concatenate([q0, v0]), **t)
+
+    def reset(gen, k):
+        s = base.expand(k, -1).clone()
+        s[:, 1] += 0.04 * torch.rand(k, generator=gen, **t) - 0.02 - ENV_DROP
+        return s
+
+    def reward(s, a, s2):
+        return s2[nv] - 1e-3 * torch.sum(a ** 2)
+
+    return BatchedEnv(world, reward, reset_sampler=reset, horizon=horizon, batch_size=worlds,
+                      device=dev, dtype=dtype)
+
+
+def env_return(env, w, start, steps):
+    """The summed reward of `steps` env steps from `start` under the linear
+    policy a = tanh(s w)."""
+    from nimblephysics_tpu_torch.simulation import EnvState
+
+    st = EnvState(start, torch.zeros(start.shape[0], dtype=torch.int32, device=start.device),
+                  torch.Generator(device=start.device).manual_seed(SEED))
+    total = 0.0
+    for _ in range(steps):
+        out = env.step(st, torch.tanh(st.state @ w))
+        st, total = out.env_state, total + out.reward.sum()
+    return total
+
+
+def phase26(dev, report):
+    """BatchedEnv on the half-cheetah at BATCH worlds (module docstring).
+    Returns K1b's kernels-line entry on the env's LCP."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+
+    t0 = time.perf_counter()
+    env = make_env(dev, BATCH)
+    eng, world = env.engine, env.world
+    check(eng.meta.seed_pgs_sweeps == 16, "the env's engine is not on the default config")
+    rng = np.random.RandomState(SEED + 26)
+    st = env.reset(SEED)
+    acts = [_on(dev, 0.5 * rng.randn(BATCH, world.action_size)) for _ in range(ENV_STEPS)]
+    env.step(st, acts[0])  # warm-up
+    torch.cuda.synchronize()
+    lcp_cuda.apgd_seed.launches = 0
+    dones = []
+    with mock.patch.object(lcp_cuda, "seed_plain", _forbidden), \
+            mock.patch.object(lcp_cuda, "apgd_plain", _forbidden), torch.no_grad():
+        t1 = time.perf_counter()
+        for a in acts:
+            prev = st
+            out = env.step(st, a)
+            st = out.env_state
+            dones.append(out.done)
+        torch.cuda.synchronize()
+        dt_s = time.perf_counter() - t1
+    launches = lcp_cuda.apgd_seed.launches
+    done = torch.stack(dones).cpu()
+    want = torch.zeros(ENV_STEPS, BATCH, dtype=torch.bool)
+    want[ENV_HORIZON - 1 :: ENV_HORIZON] = True
+    per_step = count_launches(lambda: env.step(prev, acts[-1]))
+    print(f"phase 26 (BatchedEnv, half-cheetah, default config, float32): {ENV_STEPS} steps "
+          f"x {BATCH} worlds: {dt_s / ENV_STEPS * 1e3:.3f} ms/step, "
+          f"{BATCH * ENV_STEPS / dt_s:.1f} env-steps/s; K1b launches {launches}; CUDA kernel "
+          f"launches per env step {per_step}; auto-resets at steps "
+          f"{[int(k) + 1 for k in torch.nonzero(done.any(dim=1))[:, 0]]} (horizon "
+          f"{ENV_HORIZON}), every world each time {bool(torch.equal(done, want))}")
+    check(launches == ENV_STEPS, f"K1b launched {launches} times in {ENV_STEPS} env steps")
+    check(bool(torch.equal(done, want)), "the env did not reset every world at its horizon")
+    check(bool(torch.isfinite(st.state).all()) and bool((st.steps == 0).all()),
+          "env state not finite or step counts not reset")
+    # K1 and K1b on the env's LCP (the last step's, its impulses as the warm
+    # start) against the plain version; one env step on every world.
+    nv = world.num_dofs
+    q, v = prev.state.T[:nv].contiguous(), prev.state.T[nv:].contiguous()
+    u = eng.action_to_forces(acts[-1].T.contiguous())
+    res = eng.step(q, v, u)
+    check(int((res.impulses.abs().amax(dim=0) > 0).sum()) > 0, "no env world in contact")
+    row = engine_lcp_check("phase 26", "env", *eng.lcp_blocks(
+        eng.lcp_problem(q, v, u), res.impulses)[0][0], report,
+        ("a dropped contact", dropped_contact))
+    step_check("phase 26", "env", world, eng, q, v, None, u, DZ_SAME, DV_SAME)
+    # The gradient of a linear policy's return, card f32 vs CPU f64.
+    grads = {}
+    wrng = np.random.RandomState(SEED + 261)
+    w0 = 0.1 * wrng.randn(2 * nv, world.action_size)
+    start = prev.state[:GRAD_WORLDS].detach().cpu().double().numpy()
+    for label, d_, dtype in (("card", dev, torch.float32), ("cpu", "cpu", torch.float64)):
+        e = make_env(d_, GRAD_WORLDS, dtype)
+        w = torch.as_tensor(w0, dtype=dtype, device=d_).requires_grad_()
+        (grads[label],) = torch.autograd.grad(
+            env_return(e, w, torch.as_tensor(start, dtype=dtype, device=d_), ENV_GRAD_STEPS),
+            [w])
+    g, c = grads["card"].double().cpu().reshape(-1), grads["cpu"].reshape(-1)
+    cos, rel = cosine(g, c), float((g - c).norm() / c.norm())
+    print(f"phase 26 (BatchedEnv gradient): d(return)/d(policy) over {ENV_GRAD_STEPS} env "
+          f"steps at {GRAD_WORLDS} worlds, card f32 vs CPU f64: cosine {cos:.8f} (bound "
+          f"{GRAD_COS:g}), |dg|/|g| {rel:.3e} (bound {GRAD_REL:g}), |g| {float(c.norm()):.4e}")
+    check(cos >= GRAD_COS and rel <= GRAD_REL, "env: card gradient far from the CPU's")
+    print(f"phase 26: {time.perf_counter() - t0:.1f} s")
+    k = row["k1b"]
+    return {"name": "apgd_seed_pgs/env", "route": "cuda",
+            "source": "nimblephysics_tpu_torch/csrc/apgd_seed.cu",
+            "replaces": "nimblephysics_tpu/batched/lcp_pallas.py:118", "launches": launches,
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None}
+
+
 def wide_kernel_entries(k9, runs):
     """The kernels line's entries for K1b on the 10- and 20-box capped
     LCPs: launches from the phase-18 rollouts, phase 9's numbers."""
@@ -2934,11 +3473,14 @@ def main() -> int:
     only = set()
     if len(sys.argv) > 2 and sys.argv[1] == "--only":
         only = {int(x) for x in sys.argv[2].split(",")}
-        check(only <= {9, 18, 19, 20, 21, 22, 23},
-              "--only takes phases 9 and 18 to 23")
+        check(only <= {9, *range(18, 27)}, "--only takes phases 9 and 18 to 26")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
+
+    def done(phases):
+        print(f"chip_smoke: phase {phases} done at {time.perf_counter() - t_start:.1f} s")
     repo = Path(__file__).resolve().parent
     if not (repo / "nimblephysics_tpu_torch" / "csrc" / "apgd_seed.cu").is_file():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
@@ -2983,6 +3525,12 @@ def main() -> int:
             print(json.dumps({"kernels": [phase22(dev, report)]}))
         if 23 in only:
             phase23(dev)
+        if 24 in only:
+            phase24(dev, smi)
+        if 25 in only:
+            phase25(dev, smi)
+        if 26 in only:
+            print(json.dumps({"kernels": [phase26(dev, report)]}))
         if k9 and runs:
             print(json.dumps({"kernels": wide_kernel_entries(k9, runs)}))
         print(f"chip_smoke: phases 1, 2 and {sorted(only)} passed; no result line "
@@ -3046,6 +3594,7 @@ def main() -> int:
     print(f"phase 3: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}) at n={nrows} r={nv} B={BATCH}")
     kernel_shapes("phase 3 (K1)", meta, inputs["engine_lcp"], 0, KERNEL_TOL, dev)
+    done(3)
 
     # 4. Forward rollout.
     carry, u = rollout_start(eng, q0, v0, rng, dev)
@@ -3097,37 +3646,62 @@ def main() -> int:
     check(dv32 <= DV_SAME, "card v_next disagrees with the CPU's float32 path")
     check(float(dv64.max()) <= DV_MAX, "card v_next far from the CPU f64 path")
     check(share >= DV_SHARE, "too few worlds agree with the CPU f64 path")
+    done("4-5")
 
     # 6-8. The default config, training, gradients against the CPU.
     q6, v6, u6 = inputs6
     k1b = phase6(dev, q6, v6, u6, inputs["random"])
+    done(6)
     phase7(dev)
+    done(7)
     phase8(dev)
+    done(8)
 
     # 9-13. The box-stack path.
     k9 = phase9(dev, report)
+    done(9)
     legs = phase10(dev)
+    done(10)
     phase11(dev, legs)
     isl = phase12(dev)
     phase13(dev)
+    done("11-13")
 
     # 14-17. The reference suite's worlds, the motor scenes and the rest.
     k14 = phase14(dev, report)
+    done(14)
     runs = phase15(dev)
+    done(15)
     phase16(dev)
+    done(16)
     phase17(dev, runs)
+    done(17)
 
     # 18-19. The 10- and 20-box legs; body parameters.
     wide = phase18(dev)
+    done(18)
     phase19(dev)
+    done(19)
 
     # 20-21. The single-world timestep; its Jacobians.
     phase20(dev, smi)
+    done(20)
     phase21(dev, smi)
+    done(21)
 
     # 22-23. Terrain, convex meshes, sphere sets and spline-driven joints.
     terrain = phase22(dev, report)
+    done(22)
     phase23(dev)
+    done(23)
+
+    # 24-26. Trajectory optimisation, MPC and SSID on one world; BatchedEnv.
+    phase24(dev, smi)
+    done(24)
+    phase25(dev, smi)
+    done(25)
+    env = phase26(dev, report)
+    done(26)
 
     kernel = {
         "name": "apgd_seed",
@@ -3144,7 +3718,7 @@ def main() -> int:
     }
     print(json.dumps({"kernels": [kernel, k1b, *box_kernel_entries(k9, legs, isl),
                                   *slice_kernel_entries(k14, runs),
-                                  *wide_kernel_entries(k9, wide), terrain]}))
+                                  *wide_kernel_entries(k9, wide), terrain, env]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -26,14 +26,21 @@ and the Jacobians of one step (neural.forward_pass, a BackpropSnapshot):
     J = snap.get_state_jacobian()  # (2 nv, 2 nv), d[q'; v'] / d[q; v]
     g_state, g_action, _ = snap.backprop_state(g)  # one reverse pass
 
+and the layers on top of the step (trajectory optimisation, MPC and
+system identification on one world, the batched RL environment):
+
+    from nimblephysics_tpu_torch.trajectory import MultiShot, GaussNewtonOptimizer
+    from nimblephysics_tpu_torch.realtime import MPCLocal, SSID
+    env = nt.BatchedEnv(world, reward_fn, batch_size=4096)  # BatchedEngine inside
+
 Imports torch and numpy, never jax or the JAX package.
 """
 
 
 def __getattr__(name):
     """`timestep`, `forward_pass` (`forwardPass`), `map_to_pos`,
-    `map_to_vel` and the subpackages, imported at first use (as the JAX
-    package's root has them)."""
+    `map_to_vel`, `BatchedEnv` and the subpackages, imported at first use
+    (as the JAX package's root has them)."""
     import importlib
 
     if name == "timestep":
@@ -52,7 +59,11 @@ def __getattr__(name):
         from nimblephysics_tpu_torch.neural.mappings import map_to_vel
 
         return map_to_vel
+    if name == "BatchedEnv":
+        from nimblephysics_tpu_torch.simulation.env import BatchedEnv
+
+        return BatchedEnv
     if name in ("batched", "collision", "constraint", "dynamics", "math", "models",
-                "neural", "parallel", "simulation"):
+                "neural", "parallel", "proto", "realtime", "simulation", "trajectory"):
         return importlib.import_module(f"nimblephysics_tpu_torch.{name}")
     raise AttributeError(f"module 'nimblephysics_tpu_torch' has no attribute {name!r}")

@@ -23,3 +23,8 @@ from nimblephysics_tpu_torch.dynamics.joints import (
 )
 from nimblephysics_tpu_torch.dynamics.shapes import ShapeSpec
 from nimblephysics_tpu_torch.dynamics.skeleton import BodySpec, Skeleton
+from nimblephysics_tpu_torch.dynamics.simple_featherstone import (
+    FlatChain,
+    aba_forward_dynamics,
+    flatten_chain,
+)

@@ -6,9 +6,10 @@
   module in a fresh interpreter. The name test is exact: the port's own
   name starts with "nimblephysics_tpu".
 * Entry points run on the card unless the caller asks for the CPU
-  (BatchedEngine, the single-world Engine, get_engine, forward_pass and
-  mapped_forward_pass), and timestep and a snapshot step on their state's
-  device, refusing inputs on another.
+  (BatchedEngine, the single-world Engine, get_engine, forward_pass,
+  mapped_forward_pass, and the layers above them: BatchedEnv, SingleShot,
+  MultiShot, MPCLocal and SSID), and timestep and a snapshot step on their
+  state's device, refusing inputs on another.
 * The kernel module imports, and its CPU path runs, with no nvcc and no
   GPU; nothing is compiled at import.
 """
@@ -134,6 +135,42 @@ def test_single_world_engine_defaults_to_the_card(entry):
     meta = torch.zeros(world.action_size, dtype=torch.float64, device="meta")
     with pytest.raises(ValueError, match="copies nothing"):
         make(world, state, meta)
+
+
+@pytest.mark.parametrize("entry", ["BatchedEnv", "SingleShot", "MultiShot", "MPCLocal",
+                                   "SSID"])
+def test_upper_layers_default_to_the_card(entry):
+    """The env, the trajectory problems, MPC and SSID build their engine on
+    the card unless asked for the CPU, and keep their tensors there."""
+    from nimblephysics_tpu_torch.models import cartpole
+    from nimblephysics_tpu_torch.realtime import SSID, MPCLocal
+    from nimblephysics_tpu_torch.simulation import BatchedEnv
+    from nimblephysics_tpu_torch.trajectory import MultiShot, SingleShot
+
+    world, _, _ = cartpole()
+    world.set_action_space([0])
+    make = {
+        "BatchedEnv": lambda **kw: BatchedEnv(world, lambda s, a, s2: s2[0], batch_size=2, **kw),
+        "SingleShot": lambda **kw: SingleShot(world, lambda ro: ro.poses.sum(), 2, **kw),
+        "MultiShot": lambda **kw: MultiShot(world, lambda ro: ro.poses.sum(), 4, 2, **kw),
+        "MPCLocal": lambda **kw: MPCLocal(world, lambda p, v, f: p.sum(), horizon_steps=2,
+                                          **kw),
+        "SSID": lambda **kw: SSID(world, **kw),
+    }[entry]
+    if torch.cuda.is_available():
+        assert make().engine.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    made = make(device="cpu")
+    assert made.engine.device.type == "cpu"
+    if entry == "BatchedEnv":
+        assert made.reset(0).state.device.type == "cpu"
+    elif entry in ("SingleShot", "MultiShot"):
+        assert made.start_state.device.type == "cpu"
+        assert made.initial_guess(np.zeros(4)).device.type == "cpu"
+    elif entry == "SSID":
+        assert made.masses.device.type == "cpu" and made.masses.dtype == torch.float64
 
 
 def test_timestep_refuses_mixed_devices():

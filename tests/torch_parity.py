@@ -322,6 +322,14 @@ def shallow_cheetah_state(steps=91, control=3.0, seed=20):
     (root height jittered) under a seeded control of `control` randn on
     the action dofs drawn each step, warm-started, as chip_smoke.py's
     phase 20 runs it; u is the control drawn for the next step."""
+    jw, tw, qs, vs, us = shallow_cheetah_states(steps, control, seed, keep=1)
+    return jw, tw, qs[0], vs[0], us[0]
+
+
+def shallow_cheetah_states(steps=91, control=3.0, seed=20, keep=4):
+    """shallow_cheetah_state's rollout, keeping its last `keep` states:
+    (JAX world, port world, q (keep, nv), v (keep, nv), u (keep, nv)),
+    each u the control drawn for the step after its state."""
     from nimblephysics_tpu.models import half_cheetah
 
     from nimblephysics_tpu_torch.convert import world_from_arrays
@@ -336,11 +344,15 @@ def shallow_cheetah_state(steps=91, control=3.0, seed=20):
     us = [tw.action_to_forces(t64(control * rng.randn(tw.action_size)))
           for _ in range(steps + 1)]
     s = (t64(q), t64(v0), torch.zeros(eng.num_constraint_rows, **F64))
+    kept = []
     with torch.no_grad():
-        for u in us[:steps]:
+        for k, u in enumerate(us[:steps]):
             r = eng.step(s[0], s[1], u, z_warm=s[2])
             s = (r.q, r.v, r.impulses)
-    return jw, tw, n(s[0]), n(s[1]), n(us[steps])
+            if k >= steps - keep:
+                kept.append((n(s[0]), n(s[1]), n(us[k + 1])))
+    qs, vs, ctl = (np.stack(x) for x in zip(*kept))
+    return jw, tw, qs, vs, ctl
 
 
 def ik_mapping_pair(jax_world, port_world, entries):
