@@ -31,7 +31,7 @@ Phases (any failure exits non-zero and prints no result line):
      last sweep in reverse row order) that must miss the tolerance, and as
      in phase 3 the plan, occupancy, 8192 worlds and the box-stack LCP;
      then the 100-step warm-started rollout at this config;
-  7. training: train_step_batched (4096 worlds, horizon 100, hidden 64,
+  7. training: train_step_batched (4096 worlds, horizon 50, hidden 64,
      float32) under the default config and under throughput(), one
      warm-up call (horizon 10) and one timed call each, with the kernel's launches,
      seconds per training step, fwd+bwd env-steps/s and peak memory;
@@ -73,7 +73,7 @@ Phases (any failure exits non-zero and prints no result line):
   then K1/K1b on jump_worm's, catapult's and the motor scenes' LCPs
  (14), their rollouts (15), training on them (16) and card vs CPU on
  their steps (17);
- 18. the 10- and 20-box legs (2048 and 1024 worlds, 100 steps from
+ 18. the 10- and 20-box legs (2048 and 1024 worlds, 50 steps from
      boxstack_bench.py's start): ms a step, env-steps/s, CUDA launches a
      step, peak memory, one K1b launch a step and never the plain seed,
      states finite and the stack standing; one step of 64 worlds, card vs
@@ -125,20 +125,20 @@ Phases (any failure exits non-zero and prints no result line):
      and on the custom joint, card vs CPU; a state Jacobian across a live
      heightmap contact against Ridders FD on the card;
  24. trajectory optimisation (trajectory/, float64, card vs CPU at 1e-8):
-     a half-cheetah MultiShot of 2 shots x 5 steps from phase 20's
+     a half-cheetah MultiShot of 2 shots x 3 steps from phase 20's
      rollout state 90 (live contact rows) under its controls: loss, knot
      constraints, the loss gradient, the per-step constraint and
      final-state Jacobians, with a planted fault (the first shot's A_t and
      B_t without the contact rows' gradient); ms of the rollout, the
      gradient and the per-step Jacobians, CUDA launches of a shot and of
-     one step's Jacobians; Gauss-Newton, 2 outer x 2 inner
-     iterations on 2 x 2 steps; the cartpole's augmented Lagrangian (2 x 3
+     one step's Jacobians; Gauss-Newton, 1 outer x 1 inner
+     iteration on 2 x 2 steps; the cartpole's augmented Lagrangian (2 x 3
      iterations) and its ms a step with the gradient;
  25. MPC and SSID (realtime/, float64, card vs CPU at 1e-8): the cartpole
-     MPC loop of examples/04_mpc.py (8 control steps; horizon 5, 3 Adam
+     MPC loop of examples/04_mpc.py (4 control steps; horizon 5, 3 Adam
      iterations a replan) moving the cart toward its target, and its
      replan thread started and stopped; SSID recovering the heavier
-     cart's mass (8-step window, 15 iterations, within 8%); one
+     cart's mass (8-step window, 10 iterations, within 8%); one
      half-cheetah optimize_plan (horizon 5, 2 iterations), with a planted
      fault (the CPU's replan with the impulses detached) that must miss;
  26. BatchedEnv (simulation/env.py) over the half-cheetah, the default
@@ -149,14 +149,27 @@ Phases (any failure exits non-zero and prints no result line):
      contact that must miss; one env step on every world by step_check;
      the gradient of a linear policy's 5-step return at 64 worlds, card
      f32 vs CPU f64;
+ 27. marker fitting (biomechanics/, float64, card vs CPU at 1e-8) on the
+     bundled humanoid at full width (38 dofs, 19 bodies, 25 markers):
+     256 frames of seeded synthetic mocap (poses 0.1 rad about zero, true
+     scales inside the bounds, 2% of the markers occluded); the IK
+     initializer, MarkerFitter's Gauss-Newton fit (10 outer x 8 IK
+     iterations) and a 5-iteration Adam fit with the symmetry scale
+     groups and an anthropometric prior, card vs CPU, with a planted
+     fault (offsets not scaled by their body) that must miss; the fit's
+     mean marker error under a limit; ms and CUDA launches of an outer
+     iteration, and one IK iteration's launches at 64 and 256 frames,
+     which must be equal; skeleton_height and skeleton_lowest_point with
+     their scale gradients, card vs CPU; one single-world step of
+     human_standing at phase 20's limits; no seed launch;
   then a JSON line per kernel and, last, {"ok": true, "device": ...}.
 A timed training step is preceded by a warm-up training step of
 WARMUP_STEPS steps, and phase 6's timed rollout by WARMUP_STEPS steps;
 phase 20 times its float64 card step over SW_F64_TIMED steps. Each phase
 prints the seconds since the start when it ends.
 
-`python3 chip_smoke.py --only 9,18,19,20,21,22,23,24,25,26` runs phases
-1-2 and the listed ones of 9 and 18 to 26, and prints no result line (for
+`python3 chip_smoke.py --only 9,18,19,20,21,22,23,24,25,26,27` runs phases
+1-2 and the listed ones of 9 and 18 to 27, and prints no result line (for
 iterating on them).
 
 Matmuls run in full float32: TF32 is switched off for matmuls and cuDNN,
@@ -231,8 +244,8 @@ DV_MAX = 0.3
 # thread per world); the limit is ~8x the larger. The plain polish one
 # sweep short lands at 5.9e-3 and 9.2e-2.
 PGS_TOL = 1e-4
-# Training: bench.py's width.
-TRAIN_HORIZON = 100
+# Training: bench.py's width, half its horizon of 100.
+TRAIN_HORIZON = 50
 HIDDEN = 64
 LEARNING_RATE = 1e-3
 # Phase 8: card f32 vs CPU f64 policy gradient, 64 worlds, horizon 4,
@@ -286,6 +299,9 @@ YAW_JITTER = 0.2
 # box's height within 8e-3 of its start, every |v| below 5e-2.
 STAND_DZ = 8e-3
 STAND_V = 5e-2
+# Phase 18 rolls the wide legs WIDE_STEPS steps (the top box of 20 moves
+# 4.6e-3 in 100; PERF.md).
+WIDE_STEPS = 50
 # Phase 11: one 3-box step from phase 10's final state, card vs the CPU's
 # float32 path with the card's seed, every world: impulses relative to
 # 1 + max|z|, v to 1 + max|v|. Read on the H100 (PERF.md): 1.9e-8 and
@@ -322,14 +338,14 @@ VJP_STEPS = 4
 # 2.4e-3 to 9.2e-2 on z.
 RAND_U_TOL = 1e-2
 RAND_RES_TOL = 1e-2
-# Phase 15: tests/test_reference_workloads.py's settling (600 steps, no
-# torque) and arm-torque (300 steps there, TORQUE_STEPS here) checks at
+# Phase 15: tests/test_reference_workloads.py's settling (600 steps there,
+# SETTLE_STEPS here; no torque) and arm-torque (300 steps there, TORQUE_STEPS here) checks at
 # SETTLE_WORLDS worlds; tests/test_motors.py's limits after STEPS steps:
 # the ball's anchor within 5e-3, the weld's pose within 2e-3; the servo's
 # velocity to its force-limited value, the mimic's ratio and the locked
 # joint's rest to float32 rounding (read 1.9e-7, 3.0e-8 and 1.9e-9).
 SETTLE_WORLDS = 256
-SETTLE_STEPS = 600
+SETTLE_STEPS = 400
 TORQUE_STEPS = 100
 BALL_DRIFT = 5e-3
 WELD_DRIFT = 2e-3
@@ -1653,8 +1669,9 @@ def motor_check(label, eng, q, v):
 
 def settle_check(dev):
     """tests/test_reference_workloads.py::test_settles_on_floor on the card:
-    SETTLE_WORLDS worms from the reference start, no torque, 600 steps:
-    the root rests on the floor (-0.56 < y < 0.1), |v| < 1."""
+    SETTLE_WORLDS worms from the reference start, no torque, SETTLE_STEPS
+    steps (600 there): the root rests on the floor (-0.56 < y < 0.1),
+    |v| < 1."""
     world, q0, v0, eng = make_ref_engine(dev, "jump_worm")
     (q, v, z), _ = ref_start(eng, q0, v0, np.random.RandomState(SEED + 150), dev, SETTLE_WORLDS)
     q, v, z = rollout(eng, (q, v, z), torch.zeros_like(q), SETTLE_STEPS)
@@ -1891,8 +1908,8 @@ def slice_kernel_entries(k14, runs):
 
 
 def phase18(dev):
-    """The wide legs: 100 steps from box_start at their widths, one K1b
-    launch a step and never the plain seed; finite, standing; one step
+    """The wide legs: WIDE_STEPS steps from box_start at their widths, one
+    K1b launch a step and never the plain seed; finite, standing; one step
     card vs the CPU's float32 path with the card's seed."""
     from nimblephysics_tpu_torch.batched import lcp_cuda
 
@@ -1907,7 +1924,7 @@ def phase18(dev):
         with mock.patch.object(lcp_cuda, "seed_plain", _forbidden), \
                 mock.patch.object(lcp_cuda, "apgd_plain", _forbidden):
             t0 = time.perf_counter()
-            carry = rollout(eng, carry, u, STEPS)
+            carry = rollout(eng, carry, u, WIDE_STEPS)
             torch.cuda.synchronize()
             dt_s = time.perf_counter() - t0
         launches = lcp_cuda.apgd_seed.launches
@@ -1922,8 +1939,9 @@ def phase18(dev):
         heights = qf[5::6] - torch.as_tensor(q0[5::6], dtype=qf.dtype, device=dev)[:, None]
         d = eng.lcp_problem(qf, vf, u).contact_depths
         live = eng.assembler.contact_valid(d).sum(dim=0)
-        print(f"phase 18 ({label}): {STEPS} steps x {worlds} worlds: "
-              f"{dt_s / STEPS * 1e3:.3f} ms/step, {worlds * STEPS / dt_s:.1f} env-steps/s; "
+        print(f"phase 18 ({label}): {WIDE_STEPS} steps x {worlds} worlds: "
+              f"{dt_s / WIDE_STEPS * 1e3:.3f} ms/step, {worlds * WIDE_STEPS / dt_s:.1f} "
+              f"env-steps/s; "
               f"K1b launches {launches}; CUDA kernel launches per step {per_step}; peak "
               f"memory {peak / 2**20:.1f} MiB; LCP n={eng.num_rows} solved "
               f"n={eng.meta_cap.n} r={world.num_dofs}; finite {finite}; top box max|dz| "
@@ -1933,7 +1951,8 @@ def phase18(dev):
               f"{[round(float(x), 6) for x in heights.abs().amax(dim=1)]}; worlds with "
               f"more penetrating slots than the cap ({cap}): "
               f"{int((live > cap).sum())}/{worlds}, most {int(live.max())}")
-        check(launches == STEPS, f"{label}: K1b launched {launches} times in {STEPS} steps")
+        check(launches == WIDE_STEPS,
+              f"{label}: K1b launched {launches} times in {WIDE_STEPS} steps")
         check(finite, f"{label}: state not finite")
         check(dz <= STAND_DZ, f"{label}: the top box moved {dz:.3e} from its start")
         check(vmax < STAND_V, f"{label}: the stack is moving (max|v| {vmax:.3e})")
@@ -1947,7 +1966,7 @@ def phase18(dev):
         check(c["dv32"] <= WIDE_DV_SAME, f"{label}: card v disagrees with the CPU's float32 path")
         check(c["dq_rel"] <= DQ_TOL, f"{label}: card q disagrees with the CPU f64 path")
         out[label] = dict(launches=launches, per_step=per_step, peak=peak,
-                          env_steps_s=worlds * STEPS / dt_s)
+                          env_steps_s=worlds * WIDE_STEPS / dt_s)
     return out
 
 
@@ -2961,9 +2980,9 @@ def phase23(dev):
 # reading of phases 24-26.
 TRAJ_START = 90
 TRAJ_SHOTS = 2
-TRAJ_LEN = 5
+TRAJ_LEN = 3
 TRAJ_GN_LEN = 2
-TRAJ_GN_ITERS = (2, 2)  # outer, inner
+TRAJ_GN_ITERS = (1, 1)  # outer, inner
 # The cartpole (action on the cart) at a time step of 0.05: a MultiShot of
 # CART_STEPS steps in shots of CART_SHOT, augmented Lagrangian AL_ITERS
 # (outer, inner) at AL_LR, card vs CPU at SW_VJP.
@@ -2979,14 +2998,14 @@ AL_LR = 0.2
 # iterations at SSID_LR (the JAX test: 15 steps, 150 iterations at 0.08);
 # one half-cheetah optimize_plan of MPC_HC (horizon, iterations). Card vs
 # CPU at SW_VJP.
-MPC_STEPS = 8
+MPC_STEPS = 4
 MPC_HORIZON = 5
 MPC_ITERS = 3
 MPC_LR = 0.3
 MPC_TARGET = 0.4
 MPC_HC = (5, 2)
 SSID_WINDOW = 8
-SSID_ITERS = 15
+SSID_ITERS = 10
 SSID_LR = 0.12
 SSID_RTOL = 0.08
 # Phase 26: BatchedEnv over the half-cheetah, the default config, float32,
@@ -3447,6 +3466,202 @@ def phase26(dev, report):
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None}
 
 
+# Phase 27: the marker-fitting path (biomechanics/, dynamics/queries.py)
+# on the card in float64 against the CPU, on the bundled humanoid at full
+# width (38 dofs, 19 bodies, 25 markers) and FIT_FRAMES frames of
+# synthetic mocap. Set before any card reading: poses, scales, offsets
+# and per-frame errors, card vs CPU, to SW_VJP of 1 + max|.| (the same
+# algorithm in the same dtype; only reduction orders differ); the
+# queries and their scale gradients to SW_VJP; the standing humanoid's
+# step at phase 20's limits.
+FIT_FRAMES = 256
+FIT_SHORT = 64  # the IK iteration's launches at FIT_SHORT and FIT_FRAMES
+FIT_GN_ITERS = 10
+FIT_IK_ITERS = 8
+FIT_ADAM_ITERS = 5
+FIT_OCCLUDE = 0.02
+FIT_POSE_NOISE = 0.1  # rad (and m at the root), as examples/05_marker_fitting.py
+# The Gauss-Newton fit's mean marker error (m): phase27 rehearsed on the
+# CPU read FIT_ERR_READ before any card run; the limit is twice that.
+FIT_ERR_READ = 5.4246e-3
+FIT_ERR_MAX = 1.1e-2
+
+
+def fit_mocap(frames, seed=SEED + 27):
+    """The humanoid and seeded synthetic mocap: poses FIT_POSE_NOISE about
+    zero, true scales in [0.85, 1.15] (inside the fitter's bounds),
+    FIT_OCCLUDE of the markers NaN; (skeleton, observed (T, M, 3), true
+    poses, true scales), made on the CPU in float64."""
+    from nimblephysics_tpu_torch.biomechanics import marker_table, marker_world_positions_frames
+    from nimblephysics_tpu_torch.models import rajagopal_humanoid
+
+    sk, _ = rajagopal_humanoid()
+    rng = np.random.RandomState(seed)
+    _, bodies, offsets, _ = marker_table(sk)
+    q = FIT_POSE_NOISE * rng.randn(frames, sk.num_dofs)
+    s = np.clip(1.0 + 0.05 * rng.randn(sk.num_bodies, 3), 0.85, 1.15)
+    pos = marker_world_positions_frames(sk, torch.as_tensor(q.T), bodies,
+                                        torch.as_tensor(offsets), torch.as_tensor(s))
+    obs = pos.permute(2, 0, 1).numpy().copy()
+    obs[rng.rand(frames, len(bodies)) < FIT_OCCLUDE] = np.nan
+    return sk, obs, q, s
+
+
+def fit_rel(got, want):
+    """max over the fit's readings of |d| / (1 + max|.|)."""
+    out = 0.0
+    for k in ("poses", "body_scales", "marker_offsets", "per_frame_error"):
+        a, b = getattr(got, k), getattr(want, k)
+        out = max(out, float(np.abs(a - b).max() / (1.0 + np.abs(b).max())))
+    return out
+
+
+def fit_prior(sk, groups):
+    """A Gaussian prior over three of the humanoid's lengths (thigh,
+    shank, upper arm along their bodies' y), each 1 +- 5% of the model's."""
+    from nimblephysics_tpu_torch.biomechanics import Anthropometrics, MultivariateGaussian
+
+    a = Anthropometrics()
+    names = []
+    for body in ("femur_r", "tibia_r", "humerus_r"):
+        b = sk.body_index(body)
+        length = 2.0 * abs(sk.joints[b].T_cj[1, 3])
+        a.add_metric(body, b, 1, length)
+        names.append((body, length))
+    mu = np.array([x for _, x in names])
+    a.set_skeleton(sk)
+    a.set_distribution(MultivariateGaussian([n for n, _ in names], mu, np.diag((0.05 * mu) ** 2)))
+    return a
+
+
+def fit_runs(dev, sk, obs, q0, iters=FIT_GN_ITERS, fault=False):
+    """(Gauss-Newton fit, Adam fit with the symmetry groups and the
+    prior) on `dev`; fault: the Gauss-Newton fit alone, with the offsets
+    not scaled by their body."""
+    from nimblephysics_tpu_torch.biomechanics import MarkerFitter, ScaleGroups, scaled_fk
+
+    local = (lambda off, s: off) if fault else scaled_fk._local_offsets
+    with mock.patch.object(scaled_fk, "_local_offsets", local):
+        gn = MarkerFitter(sk, device=dev).fit(obs, q_init=q0, outer_iterations=iters,
+                                              ik_iterations=FIT_IK_ITERS, outer_solver="gn")
+        if fault:
+            return gn, None
+        groups = ScaleGroups.from_symmetry(sk)
+        adam = MarkerFitter(sk, scale_groups=groups, anthropometrics=fit_prior(sk, groups),
+                            device=dev).fit(obs, q_init=q0, outer_iterations=FIT_ADAM_ITERS,
+                                            ik_iterations=FIT_IK_ITERS)
+    return gn, adam
+
+
+def phase27(dev, smi):
+    """Marker fitting on the card (module docstring)."""
+    from nimblephysics_tpu_torch.batched import lcp_cuda
+    from nimblephysics_tpu_torch.biomechanics import IKInitializer, MarkerFitter
+    from nimblephysics_tpu_torch.dynamics import queries
+    from nimblephysics_tpu_torch.models import human_standing
+    from nimblephysics_tpu_torch.neural import Engine
+
+    t0 = time.perf_counter()
+    launches0 = lcp_cuda.apgd_seed.launches
+    sk, obs, q_true, s_true = fit_mocap(FIT_FRAMES)
+    check((sk.num_dofs, sk.num_bodies, len(sk.markers)) == (38, 19, 25), "the humanoid's width")
+    q0_cpu = IKInitializer(sk, device="cpu").initialize(obs)
+    q0 = IKInitializer(sk, device=dev).initialize(obs)
+    d_init = float(np.abs(q0 - q0_cpu).max() / (1.0 + np.abs(q0_cpu).max()))
+
+    cpu_gn, cpu_adam = fit_runs("cpu", sk, obs, q0_cpu)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    card_gn, card_adam = fit_runs(dev, sk, obs, q0)
+    torch.cuda.synchronize()
+    fits_s = time.perf_counter() - t1
+    fault_gn, _ = fit_runs("cpu", sk, obs, q0_cpu, fault=True)
+    d_gn, d_adam, d_fault = (fit_rel(card_gn, cpu_gn), fit_rel(card_adam, cpu_adam),
+                             fit_rel(card_gn, fault_gn))
+    s_err = float(np.abs(card_gn.body_scales - s_true).max())
+    print(f"phase 27 (fits): humanoid {sk.num_dofs} dofs, {sk.num_bodies} bodies, "
+          f"{len(sk.markers)} markers, {FIT_FRAMES} frames, {int(np.isnan(obs[..., 0]).sum())} "
+          f"occluded; IK initializer card vs CPU {d_init:.3e}; Gauss-Newton "
+          f"({FIT_GN_ITERS} x {FIT_IK_ITERS} IK) card vs CPU {d_gn:.3e}, Adam "
+          f"({FIT_ADAM_ITERS} x {FIT_IK_ITERS} IK, symmetry groups, prior) {d_adam:.3e} "
+          f"(bound {SW_VJP:g}); planted fault (offsets not scaled) {d_fault:.3e} (must "
+          f"exceed {SW_VJP:g}); mean marker error {card_gn.avg_marker_error:.4e} m (limit "
+          f"{FIT_ERR_MAX:g}, the CPU read {FIT_ERR_READ:g} before any card run), max "
+          f"|scale - true| {s_err:.3e}; the card's two fits {fits_s:.1f} s")
+    check(d_init <= SW_VJP, "the card's IK initializer disagrees with the CPU's")
+    check(max(d_gn, d_adam) <= SW_VJP, "the card's marker fits disagree with the CPU's")
+    check(d_fault > SW_VJP, "the limit cannot tell offsets that do not scale")
+    check(card_gn.avg_marker_error < FIT_ERR_MAX, "the Gauss-Newton fit did not recover")
+    check(all(np.isfinite(getattr(card_adam, k)).all() for k in ("poses", "body_scales")),
+          "the Adam fit is not finite")
+
+    # Costs: ms and launches of an outer iteration; one IK iteration's
+    # launches at FIT_SHORT and FIT_FRAMES frames.
+    fitter = MarkerFitter(sk, device=dev)
+
+    def fit(iters, frames=FIT_FRAMES):
+        return fitter.fit(obs[:frames], q_init=q0[:frames], outer_iterations=iters,
+                          ik_iterations=FIT_IK_ITERS, outer_solver="gn")
+
+    ms = {}
+    for iters in (0, FIT_GN_ITERS):
+        fit(iters)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fit(iters)
+        torch.cuda.synchronize()
+        ms[iters] = (time.perf_counter() - t1) * 1e3
+    outer_ms = (ms[FIT_GN_ITERS] - ms[0]) / FIT_GN_ITERS
+    outer_launches = count_launches(lambda: fit(2)) - count_launches(lambda: fit(1))
+    ik = {}
+    for frames in (FIT_SHORT, FIT_FRAMES):
+        o = torch.as_tensor(np.nan_to_num(obs[:frames]).transpose(1, 2, 0), device=dev)
+        m = torch.as_tensor(~np.isnan(obs[:frames, :, 0]).T, device=dev)
+        q = torch.as_tensor(q0[:frames].T, device=dev)
+        s = torch.ones(sk.num_bodies, 3, dtype=torch.float64, device=dev)
+        args = (q, s, fitter._off0, o, m)
+        fitter.ik_step(*args)
+        ik[frames] = count_launches(lambda: fitter.ik_step(*args))
+    print(f"phase 27 (costs): {smi}: a Gauss-Newton outer iteration ({FIT_IK_ITERS} IK "
+          f"iterations and the outer step, {FIT_FRAMES} frames) {outer_ms:.1f} ms, "
+          f"{outer_launches} CUDA launches; the fit's set-up and final IK {ms[0]:.1f} ms; "
+          f"one IK iteration {ik[FIT_SHORT]} launches at {FIT_SHORT} frames, "
+          f"{ik[FIT_FRAMES]} at {FIT_FRAMES}")
+    check(ik[FIT_SHORT] == ik[FIT_FRAMES], "an IK iteration's launches depend on the frames")
+
+    # The geometry queries and their scale gradients, card vs CPU.
+    rng = np.random.RandomState(SEED + 28)
+    qq, ss = FIT_POSE_NOISE * rng.randn(sk.num_dofs), s_true
+    d_q = 0.0
+    for name in ("skeleton_height", "skeleton_lowest_point"):
+        vals = []
+        for d_ in ("cpu", dev):
+            x = torch.as_tensor(ss, device=d_).requires_grad_(True)
+            v = getattr(queries, name)(sk, torch.as_tensor(qq, device=d_), x)
+            v.backward()
+            vals.append((float(v.detach()), x.grad.cpu().numpy()))
+        (vc, gc), (vg, gg) = vals
+        d_q = max(d_q, abs(vg - vc) / (1.0 + abs(vc)),
+                  float(np.abs(gg - gc).max() / (1.0 + np.abs(gc).max())))
+    print(f"phase 27 (queries): height and lowest point with their scale gradients, card vs "
+          f"CPU {d_q:.3e} (bound {SW_VJP:g})")
+    check(d_q <= SW_VJP, "the card's geometry queries disagree with the CPU's")
+
+    # The standing humanoid: one single-world step, card vs CPU.
+    world, q_st, v_st = human_standing()
+    x = [torch.as_tensor(a, dtype=torch.float64) for a in (q_st, v_st, np.zeros(world.num_dofs))]
+    want = Engine(world, device="cpu").step(*x)
+    got = Engine(world, device=dev).step(*sw_on(dev, x))
+    d = sw_compare(got, want)
+    print(f"phase 27 (standing): human_standing step card vs CPU |dq| {d[0]:.3e} (bound "
+          f"{SW_DQ:g}), |dv| {d[1]:.3e} (bound {SW_DV:g}), |dz| {d[2]:.3e} (bound "
+          f"{SW_DZ:g}); {int((want.contact_depths > 0).sum())} contacts")
+    check(d[0] <= SW_DQ and d[1] <= SW_DV and d[2] <= SW_DZ,
+          "the standing humanoid's card step disagrees with the CPU")
+    check(lcp_cuda.apgd_seed.launches == launches0, "the marker-fitting path launched the seed")
+    print(f"phase 27: {time.perf_counter() - t0:.1f} s")
+
+
 def wide_kernel_entries(k9, runs):
     """The kernels line's entries for K1b on the 10- and 20-box capped
     LCPs: launches from the phase-18 rollouts, phase 9's numbers."""
@@ -3473,7 +3688,7 @@ def main() -> int:
     only = set()
     if len(sys.argv) > 2 and sys.argv[1] == "--only":
         only = {int(x) for x in sys.argv[2].split(",")}
-        check(only <= {9, *range(18, 27)}, "--only takes phases 9 and 18 to 26")
+        check(only <= {9, *range(18, 28)}, "--only takes phases 9 and 18 to 27")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3531,6 +3746,8 @@ def main() -> int:
             phase25(dev, smi)
         if 26 in only:
             print(json.dumps({"kernels": [phase26(dev, report)]}))
+        if 27 in only:
+            phase27(dev, smi)
         if k9 and runs:
             print(json.dumps({"kernels": wide_kernel_entries(k9, runs)}))
         print(f"chip_smoke: phases 1, 2 and {sorted(only)} passed; no result line "
@@ -3702,6 +3919,10 @@ def main() -> int:
     done(25)
     env = phase26(dev, report)
     done(26)
+
+    # 27. Marker fitting on the bundled humanoid.
+    phase27(dev, smi)
+    done(27)
 
     kernel = {
         "name": "apgd_seed",

@@ -37,9 +37,11 @@ Spec layout (every array-like is converted with np.asarray):
                      "shapes": [{"type", "size", "T_offset" (4,4),
                                  "friction", "restitution",
                                  "collidable", "mesh_vertices" (n,3),
-                                 "heights" (H,W), "spheres" (N,4)}]}]}]}
+                                 "heights" (H,W), "spheres" (N,4)}]}],
+         "markers": [(name, body, offset (3,), fixed: bool), ...]}]}
 
-Joint i of a skeleton carries body i. Joint types are the names of
+Joint i of a skeleton carries body i; a marker names a body of its own
+skeleton. Joint types are the names of
 dynamics/joints.py, and both engines take all of them; "props" holds a
 biomechanics joint's parameters (ellipsoid, scapulathoracic,
 constantcurve, constantcurveincompressible) and "custom" a custom
@@ -142,6 +144,8 @@ def world_from_arrays(spec: dict) -> World:
                 props=jd.get("props"),
                 **{k: jd.get(k) for k in _JOINT_VECTORS},
             )
+        for name, body, offset, fixed in sk.get("markers", ()):
+            skel.add_marker(name, int(body), offset, bool(fixed))
         world.add_skeleton(skel)
     if spec.get("action_indices") is not None:
         world.set_action_space(spec["action_indices"])

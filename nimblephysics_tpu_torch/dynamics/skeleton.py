@@ -72,12 +72,19 @@ class Skeleton:
         self.bodies: List[BodySpec] = []
         self.self_collision_enabled = False
         self.adjacent_body_check = False
+        # Mocap markers: name -> (body index, local offset (3,), fixed).
+        self.markers: Dict[str, Tuple[int, np.ndarray, bool]] = {}
 
     def set_self_collision_check(self, enabled: bool) -> None:
         self.self_collision_enabled = bool(enabled)
 
     def set_adjacent_body_check(self, enabled: bool) -> None:
         self.adjacent_body_check = bool(enabled)
+
+    def add_marker(self, name: str, body: int, offset, fixed: bool = False) -> None:
+        """Attach a mocap marker at `offset` in body `body`'s frame;
+        fixed: an anatomical marker (strongly offset-regularized)."""
+        self.markers[name] = (int(body), np.asarray(offset, dtype=np.float64), bool(fixed))
 
     def add_joint_and_body(
         self,
@@ -161,6 +168,12 @@ class Skeleton:
     @property
     def num_dofs(self) -> int:
         return sum(j.num_dofs for j in self.joints)
+
+    def body_index(self, name: str) -> int:
+        for i, b in enumerate(self.bodies):
+            if b.name == name:
+                return i
+        raise KeyError(name)
 
     def _per_dof(self, getter) -> np.ndarray:
         if not self.joints:

@@ -9,3 +9,4 @@ from nimblephysics_tpu_torch.models.builtin import (
     inverted_double_pendulum,
     jump_worm,
 )
+from nimblephysics_tpu_torch.models.human import human_standing, rajagopal_humanoid

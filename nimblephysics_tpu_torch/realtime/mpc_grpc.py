@@ -257,6 +257,12 @@ class MPCRemoteGrpc:
         self._listening = False
         self._stop(M["MPCStopRequest"](clientClock=int(time.time())))
 
+    def close(self) -> None:
+        """Close the channel (ends the update stream); the proxy is
+        unusable after."""
+        self._listening = False
+        self._channel.close()
+
     def _listen_loop(self):
         M = self._M
         try:

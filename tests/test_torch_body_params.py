@@ -99,39 +99,48 @@ QUANTITIES = ["fk", "bias", "mass"]
 @pytest.fixture(scope="module")
 def scaled_dynamics(cheetah):
     """fk(scales), bias_forces(G_list, scales) and mass_matrix_blocks(G_list)
-    of both packages, per world: {name: (port, JAX)}."""
+    of both packages: name -> (port, JAX), each world's JAX side compiled
+    at its first test (a test worker runs only the worlds it meets)."""
     out = {}
-    for name in WORLDS:
-        if name == "half_cheetah":
-            jw, tw, q0, je, te = cheetah
-        else:
-            jw = _chain_world()
-            tw = world_from_arrays(dump_world(jw))
-            je, te = JaxEngine(jw), BatchedEngine(tw, **F64)
-            q0 = np.zeros(jw.num_dofs)
-        rng = np.random.RandomState(7)
-        q = q0[:, None] + 0.3 * rng.randn(jw.num_dofs, B)
-        v = rng.randn(jw.num_dofs, B)
-        bp = _jitter(jw, rng, B)
 
-        def both(m, fw, q, v, scales, G_list, *grav):
-            R, p, W, S, rels = m.fk(fw, q, scales=scales)
-            stack = jnp.stack if m is ja else torch.stack
-            return dict(fk=(stack(R), stack(p), W),
-                        bias=(m.bias_forces(fw, q, v, rels, S, *grav, G_list=G_list,
-                                            scales=scales),),
-                        mass=tuple(m.mass_matrix_blocks(fw, R, p, W, G_list=G_list)))
+    def get(name):
+        if name not in out:
+            out[name] = _scaled_dynamics(cheetah, name)
+        return out[name]
 
-        def jax_side(q, v, bp):
-            scales, G_list = je._prepare_body_params(bp, jnp.float64, B)
-            return both(ja, je.fw, q, v, scales, G_list, jw.gravity)
+    return get
 
-        want = jax.jit(jax_side)(jnp.asarray(q), jnp.asarray(v),
-                                 {k: jnp.asarray(x) for k, x in bp.items()})
-        scales, G_list = te._prepare_body_params({k: t64(x) for k, x in bp.items()},
-                                                 torch.float64, B)
-        out[name] = both(ta, te.fw, t64(q), t64(v), scales, G_list), want
-    return out
+
+def _scaled_dynamics(cheetah, name):
+    if name == "half_cheetah":
+        jw, tw, q0, je, te = cheetah
+    else:
+        jw = _chain_world()
+        tw = world_from_arrays(dump_world(jw))
+        je, te = JaxEngine(jw), BatchedEngine(tw, **F64)
+        q0 = np.zeros(jw.num_dofs)
+    rng = np.random.RandomState(7)
+    q = q0[:, None] + 0.3 * rng.randn(jw.num_dofs, B)
+    v = rng.randn(jw.num_dofs, B)
+    bp = _jitter(jw, rng, B)
+
+    def both(m, fw, q, v, scales, G_list, *grav):
+        R, p, W, S, rels = m.fk(fw, q, scales=scales)
+        stack = jnp.stack if m is ja else torch.stack
+        return dict(fk=(stack(R), stack(p), W),
+                    bias=(m.bias_forces(fw, q, v, rels, S, *grav, G_list=G_list,
+                                        scales=scales),),
+                    mass=tuple(m.mass_matrix_blocks(fw, R, p, W, G_list=G_list)))
+
+    def jax_side(q, v, bp):
+        scales, G_list = je._prepare_body_params(bp, jnp.float64, B)
+        return both(ja, je.fw, q, v, scales, G_list, jw.gravity)
+
+    want = jax.jit(jax_side)(jnp.asarray(q), jnp.asarray(v),
+                             {k: jnp.asarray(x) for k, x in bp.items()})
+    scales, G_list = te._prepare_body_params({k: t64(x) for k, x in bp.items()},
+                                             torch.float64, B)
+    return both(ta, te.fw, t64(q), t64(v), scales, G_list), want
 
 
 @pytest.mark.parametrize("what", QUANTITIES)
@@ -140,7 +149,7 @@ def test_scaled_dynamics_match_jax(scaled_dynamics, name, what):
     """World rotations, positions and W with scaled anchors; C(q, v) with
     the per-world inertias and the scaled S and S-dot; the mass matrix with
     the per-world inertias: to 1e-12."""
-    got, want = scaled_dynamics[name]
+    got, want = scaled_dynamics(name)
     for a, b in zip(got[what], want[what]):
         np.testing.assert_allclose(n(a), n(b), rtol=1e-12, atol=1e-12)
 

@@ -15,6 +15,7 @@
 """
 
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -138,10 +139,13 @@ def test_single_world_engine_defaults_to_the_card(entry):
 
 
 @pytest.mark.parametrize("entry", ["BatchedEnv", "SingleShot", "MultiShot", "MPCLocal",
-                                   "SSID"])
+                                   "SSID", "MarkerFitter"])
 def test_upper_layers_default_to_the_card(entry):
     """The env, the trajectory problems, MPC and SSID build their engine on
-    the card unless asked for the CPU, and keep their tensors there."""
+    the card unless asked for the CPU, and keep their tensors there; the
+    MarkerFitter takes the card the same way and fits on the CPU when
+    asked."""
+    from nimblephysics_tpu_torch.biomechanics import MarkerFitter
     from nimblephysics_tpu_torch.models import cartpole
     from nimblephysics_tpu_torch.realtime import SSID, MPCLocal
     from nimblephysics_tpu_torch.simulation import BatchedEnv
@@ -156,14 +160,16 @@ def test_upper_layers_default_to_the_card(entry):
         "MPCLocal": lambda **kw: MPCLocal(world, lambda p, v, f: p.sum(), horizon_steps=2,
                                           **kw),
         "SSID": lambda **kw: SSID(world, **kw),
+        "MarkerFitter": lambda **kw: MarkerFitter(_marked_skeleton(), **kw),
     }[entry]
     if torch.cuda.is_available():
-        assert make().engine.device.type == "cuda"
+        made = make()
+        assert getattr(made, "engine", made).device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     made = make(device="cpu")
-    assert made.engine.device.type == "cpu"
+    assert getattr(made, "engine", made).device.type == "cpu"
     if entry == "BatchedEnv":
         assert made.reset(0).state.device.type == "cpu"
     elif entry in ("SingleShot", "MultiShot"):
@@ -171,6 +177,65 @@ def test_upper_layers_default_to_the_card(entry):
         assert made.initial_guess(np.zeros(4)).device.type == "cpu"
     elif entry == "SSID":
         assert made.masses.device.type == "cpu" and made.masses.dtype == torch.float64
+    elif entry == "MarkerFitter":
+        obs = np.zeros((2, 3, 3))
+        res = made.fit(obs, outer_iterations=1, ik_iterations=1, outer_solver="gn")
+        assert res.poses.shape == (2, 3) and np.isfinite(res.avg_marker_error)
+
+
+def _marked_skeleton():
+    """A one-ball-joint skeleton with three markers."""
+    from nimblephysics_tpu_torch.dynamics import Skeleton
+
+    sk = Skeleton("marked")
+    sk.add_joint_and_body("ball")
+    for k, off in enumerate(np.eye(3) * 0.1):
+        sk.add_marker(f"m{k}", 0, off)
+    return sk
+
+
+@pytest.mark.parametrize("entry", ["IKInitializer", "solve_ik", "skeleton_height",
+                                   "skeleton_lowest_point", "ScaleGroups.identity",
+                                   "Anthropometrics.measure"])
+def test_biomechanics_entries_default_to_the_card(entry):
+    """The marker-fitting path's entry points that make tensors take the
+    card unless asked for the CPU; the queries and solve_ik run on the
+    device of the tensors they are given and refuse a device that
+    differs."""
+    from nimblephysics_tpu_torch.biomechanics import (
+        Anthropometrics,
+        IKInitializer,
+        ScaleGroups,
+    )
+    from nimblephysics_tpu_torch.dynamics import ShapeSpec
+    from nimblephysics_tpu_torch.dynamics import queries
+    from nimblephysics_tpu_torch.math.iksolver import solve_ik
+
+    sk = _marked_skeleton()
+    sk.bodies[0] = dataclasses.replace(sk.bodies[0], shapes=(ShapeSpec("sphere", np.array([0.1])),))
+    anthro = Anthropometrics()
+    anthro.add_metric("x", 0, 0, 0.3)
+    make = {
+        "IKInitializer": lambda **kw: IKInitializer(sk, **kw).device,
+        "solve_ik": lambda **kw: solve_ik(lambda q: q * 2.0, np.ones(3), np.zeros(3),
+                                          iterations=2, **kw).device,
+        "skeleton_height": lambda **kw: queries.skeleton_height(sk, **kw).device,
+        "skeleton_lowest_point": lambda **kw: queries.skeleton_lowest_point(sk, **kw).device,
+        "ScaleGroups.identity": lambda **kw: ScaleGroups(sk).identity(**kw).device,
+        "Anthropometrics.measure": lambda **kw: anthro.measure(sk, **kw)["x"].device,
+    }[entry]
+    if torch.cuda.is_available():
+        assert make().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert make(device="cpu").type == "cpu"
+    if entry in ("skeleton_height", "solve_ik"):
+        q = torch.zeros(3, dtype=torch.float64, device="meta")
+        fn = (lambda: queries.skeleton_height(sk, q, device="cpu")) if entry == "skeleton_height" \
+            else (lambda: solve_ik(lambda x: x, np.ones(3), q, device="cpu"))
+        with pytest.raises(ValueError, match="not on cpu"):
+            fn()
 
 
 def test_timestep_refuses_mixed_devices():

@@ -126,9 +126,11 @@ def test_map_to_pos_and_vel_at_the_root_match_jax():
 
 @pytest.fixture(scope="module")
 def mapped_case():
-    """The battery's ball chain at its state, both mappings, and the JAX
-    mapped snapshot's readings under one jax.jit: the post-step mapped
-    state and backprop_mapped with and without a velocity loss."""
+    """The battery's ball chain at its state, both mappings and seeded
+    losses, and the JAX side as a function: the JAX mapped snapshot's
+    readings under one jax.jit (the post-step mapped state and
+    backprop_mapped with and without a velocity loss), compiled by the
+    test that reads them."""
     jw, q, v, u = _cfg_ball_chain()
     jw.set_action_space([0, 1, 2, 4])
     tw = world_from_arrays(dump_world(jw))
@@ -142,12 +144,12 @@ def mapped_case():
         return (snap.map_post_step("ik"), snap.backprop_mapped("ik", gp),
                 snap.backprop_mapped("ik", gp, gv))
 
-    want = jax.device_get(jax.jit(jax_side)(state, action, gp, gv))
-    return tw, tm, state, action, gp, gv, want
+    return tw, tm, state, action, gp, gv, jax_side
 
 
 def test_mapped_backprop_matches_jax(mapped_case):
-    tw, tm, state, action, gp, gv, want = mapped_case
+    tw, tm, state, action, gp, gv, jax_side = mapped_case
+    want = jax.device_get(jax.jit(jax_side)(state, action, gp, gv))
     assert nt.neural.get_engine(tw, device="cpu").num_constraint_rows == 0
     snap = nt.neural.mapped_forward_pass(tw, t64(state), t64(action), {"ik": tm})
     got = (snap.map_post_step("ik"), snap.backprop_mapped("ik", t64(gp)),

@@ -278,6 +278,7 @@ def test_grpc_service_roundtrip():
             assert wait_for(lambda: len(mpc.observation_log) > n_obs0, timeout=10.0)
         finally:
             remote.stop()
+            remote.close()
     finally:
         server.stop(grace=None)
     # The Stop RPC stopped the background optimizer.

@@ -9,8 +9,9 @@ biomechanics joints against the JAX package, float64 on the CPU.
   1e-12;
 * the batched step on tests/test_batched.py's custom-joint and
   biomechanics skeletons (B = 3) and the single-world step on
-  tests/test_biomech_joints.py's, to 1e-9: each side's skeletons in one
-  world, so that each JAX step is compiled once;
+  tests/test_biomech_joints.py's, to 1e-9: the port steps every joint's
+  skeleton in one world, the JAX package each skeleton alone (one
+  small compile a case);
 * a VJP through the spline joint's batched step against finite
   differences of the port's own step.
 """
@@ -143,61 +144,73 @@ def _jax_skeleton(jt, props, tip):
 
 
 def _zoo(tip):
-    """One world holding every joint's skeleton (one JAX compilation for
-    all five), gravity -y; and each joint's dof slice."""
+    """One world holding every joint's skeleton, gravity -y; and each
+    joint's dof slice."""
     w = JaxWorld(gravity=(0.0, -9.81, 0.0), time_step=0.001)
     for jt, props in JOINTS:
         w.add_skeleton(_jax_skeleton(jt, props, tip))
     return w, dict(zip([j[0] for j in JOINTS], w.dof_slices()))
 
 
+def _alone(jt, tip):
+    """Joint jt's zoo skeleton alone in a world like the zoo's. The zoo's
+    skeletons share no contact and no constraint row, so its step is the
+    zoo's on its dofs; the JAX side compiles this world, a few seconds a
+    case (the whole zoo's step took 28-55 s to compile, again in each test
+    worker that ran one of its cases)."""
+    w = JaxWorld(gravity=(0.0, -9.81, 0.0), time_step=0.001)
+    w.add_skeleton(_jax_skeleton(jt, dict(JOINTS)[jt], tip))
+    return w
+
+
 @pytest.fixture(scope="module")
 def batched_zoo():
-    """The zoo with tips stepped by the JAX batched engine (jitted once)
-    and the port's, from the same seeded (nv, 3) inputs; the port's
-    engine."""
+    """The port's batched step of the zoo with tips from seeded (nv, 3)
+    inputs; the inputs and each joint's dof slice."""
     jw, slices = _zoo(tip=True)
     nv = jw.num_dofs
     rng = np.random.RandomState(11)
     q, v, u = 0.5 * rng.randn(nv, 3), 0.5 * rng.randn(nv, 3), 0.2 * rng.randn(nv, 3)
-    je = JaxBatched(jw)
-    jr = jax.jit(lambda q, v, u: je.step(q, v, u))(jnp.asarray(q), jnp.asarray(v),
-                                                   jnp.asarray(u))
     te = BatchedEngine(world_from_arrays(dump_world(jw)), **F64)
-    tr = te.step(t64(q), t64(v), t64(u))
-    return jr, tr, te, slices
+    return (q, v, u), te.step(t64(q), t64(v), t64(u)), slices
 
 
 @pytest.mark.parametrize("jt", [j[0] for j in JOINTS])
 def test_batched_step_matches_jax(batched_zoo, jt):
-    jr, tr, _, slices = batched_zoo
+    """The joint's dofs of the port's zoo step against the JAX batched
+    engine's step of its skeleton alone (jitted once) from the same
+    inputs."""
+    xs, tr, slices = batched_zoo
     s, e = slices[jt]
-    np.testing.assert_allclose(n(tr.q)[s:e], np.asarray(jr.q)[s:e], atol=1e-9, rtol=0)
-    np.testing.assert_allclose(n(tr.v)[s:e], np.asarray(jr.v)[s:e], atol=1e-9, rtol=0)
+    je = JaxBatched(_alone(jt, tip=True))
+    jr = jax.jit(lambda q, v, u: je.step(q, v, u))(*(jnp.asarray(x[s:e]) for x in xs))
+    np.testing.assert_allclose(n(tr.q)[s:e], np.asarray(jr.q), atol=1e-9, rtol=0)
+    np.testing.assert_allclose(n(tr.v)[s:e], np.asarray(jr.v), atol=1e-9, rtol=0)
 
 
 @pytest.fixture(scope="module")
 def single_zoo():
-    """The zoo without tips stepped once by the JAX single-world Engine
-    (jitted once) and the port's, from tests/test_biomech_joints.py's
-    seeded state scale."""
+    """The port's single-world step of the zoo without tips, from
+    tests/test_biomech_joints.py's seeded state scale; the inputs and each
+    joint's dof slice."""
     jw, slices = _zoo(tip=False)
     nv = jw.num_dofs
     rng = np.random.RandomState(3)
     q, v, u = (0.3 * rng.randn(nv) for _ in range(3))
-    je = JaxEngine(jw)
-    jr = jax.jit(lambda q, v, u: je.step(q, v, u))(jnp.asarray(q), jnp.asarray(v),
-                                                   jnp.asarray(u))
     tr = Engine(world_from_arrays(dump_world(jw)), device="cpu").step(t64(q), t64(v), t64(u))
-    return jr, tr, slices
+    return (q, v, u), tr, slices
 
 
 @pytest.mark.parametrize("jt", [j[0] for j in JOINTS])
 def test_single_world_step_matches_jax(single_zoo, jt):
-    jr, tr, slices = single_zoo
+    """The joint's dofs of the port's zoo step against the JAX single-world
+    Engine's step of its skeleton alone (jitted once)."""
+    xs, tr, slices = single_zoo
     s, e = slices[jt]
-    np.testing.assert_allclose(n(tr.q)[s:e], np.asarray(jr.q)[s:e], atol=1e-9, rtol=0)
-    np.testing.assert_allclose(n(tr.v)[s:e], np.asarray(jr.v)[s:e], atol=1e-9, rtol=0)
+    je = JaxEngine(_alone(jt, tip=False))
+    jr = jax.jit(lambda q, v, u: je.step(q, v, u))(*(jnp.asarray(x[s:e]) for x in xs))
+    np.testing.assert_allclose(n(tr.q)[s:e], np.asarray(jr.q), atol=1e-9, rtol=0)
+    np.testing.assert_allclose(n(tr.v)[s:e], np.asarray(jr.v), atol=1e-9, rtol=0)
 
 
 def test_spline_joint_step_vjp_matches_finite_differences():

@@ -7,8 +7,9 @@ trajectory/optimizers.py) against the JAX package, float64 on the CPU.
   Jacobians at 1e-9, and the per-step (scan) forms against the reverse
   pass through the whole rollout in the port itself; pinned forces and a
   per-mapping loss; the first iterates of SGDOptimizer and of the
-  augmented Lagrangian's inner loop at 1e-8. The JAX side of each is one
-  jax.jit, compiled once in a module fixture.
+  augmented Lagrangian's inner loop at 1e-8. The JAX side of each test
+  is one jax.jit of what that test reads (a fixture shared by tests
+  would compile again in each test worker that runs one of them).
 * The JAX tests' own end criteria on the port's optimisers, on the
   cartpole at a time step of 0.05 and fewer steps, to keep each test to
   seconds (the port's single-world step takes ~30 ms with its gradient on
@@ -136,33 +137,32 @@ def problems(jw, tw):
 
 @pytest.fixture(scope="module")
 def cart():
-    """The problems and every JAX reading of them, from one jax.jit."""
+    """The cartpole worlds and problems (nothing compiled)."""
     jw, tw = cart_pair()
-    probs = problems(jw, tw)
+    return jw, tw, problems(jw, tw)
 
-    def readings(xs):
-        out = {}
-        for name in ("mapped", "multi_pinned"):
-            pj = probs[name][0]
-            x = xs[name]
-            ro = pj.rollout(x)
-            out[name] = dict(poses=ro.poses, vels=ro.vels, forces=ro.forces,
-                             loss=pj.loss(x), grad=jax.grad(pj.loss)(x),
-                             constraints=pj.constraints(x))
-            if name == "mapped":
-                out[name].update(mpos=ro.mapped["pole"]["pos"],
-                                 mvel=ro.mapped["pole"]["vel"])
-            if name == "multi_pinned":
-                tr = JaxTR(pj, jax_terminal)
-                out[name].update(jac=pj.constraint_jacobian(x),
-                                 jac_scan=pj.constraint_jacobian_scan(x),
-                                 final_jac=pj.final_state_jacobian(x),
-                                 tr=tr(x), tr_jac=tr.jacobian(x))
+
+def jax_readings(probs, name, jacobians=False):
+    """The JAX readings of problem `name` from one jax.jit: its rollout,
+    loss, loss gradient and constraints (and the mapping's readings);
+    with jacobians, the constraint Jacobian (whole and per step), the
+    final-state Jacobian and the terminal residuals with their Jacobian
+    instead. Each test compiles only what it reads, once."""
+    pj, _, x = probs[name]
+
+    def readings(x):
+        if jacobians:
+            tr = JaxTR(pj, jax_terminal)
+            return dict(jac=pj.constraint_jacobian(x), jac_scan=pj.constraint_jacobian_scan(x),
+                        final_jac=pj.final_state_jacobian(x), tr=tr(x), tr_jac=tr.jacobian(x))
+        ro = pj.rollout(x)
+        out = dict(poses=ro.poses, vels=ro.vels, forces=ro.forces, loss=pj.loss(x),
+                   grad=jax.grad(pj.loss)(x), constraints=pj.constraints(x))
+        if name == "mapped":
+            out.update(mpos=ro.mapped["pole"]["pos"], mvel=ro.mapped["pole"]["vel"])
         return out
 
-    xs = {k: jnp.asarray(probs[k][2]) for k in ("mapped", "multi_pinned")}
-    ref = jax.tree_util.tree_map(np.asarray, jax.jit(readings)(xs))
-    return jw, tw, probs, ref
+    return jax.tree_util.tree_map(np.asarray, jax.jit(readings)(jnp.asarray(x)))
 
 
 def close(got, want, rtol, atol=None):
@@ -176,9 +176,9 @@ def test_rollout_loss_grad_constraints_match_jax(cart, name):
     """A MultiShot and a SingleShot with a mapping, each with a pinned
     force (the unpinned SingleShot's and MultiShot's gradients are held
     through the optimisers' iterates below)."""
-    _, _, probs, ref = cart
+    _, _, probs = cart
     _, pt, x = probs[name]
-    r = ref[name]
+    r = jax_readings(probs, name)
     xt = t64(x).requires_grad_()
     ro = pt.rollout(xt)
     for key in ("poses", "vels", "forces"):
@@ -206,9 +206,9 @@ def test_jacobians_match_jax_and_the_rollout_reverse_pass(cart):
     """The per-step (scan) Jacobians against JAX at 1e-9 and against the
     port's reverse pass through the whole rollout (tests/
     test_atlas_trajectory.py::test_structured_jacobians_match_jacrev)."""
-    _, _, probs, ref = cart
+    _, _, probs = cart
     _, pt, x = probs["multi_pinned"]
-    r = ref["multi_pinned"]
+    r = jax_readings(probs, "multi_pinned", jacobians=True)
     xt = t64(x)
     J_scan = pt.constraint_jacobian_scan(xt)
     J_ref = pt.constraint_jacobian(xt)
@@ -230,7 +230,7 @@ def test_jacobians_match_jax_and_the_rollout_reverse_pass(cart):
 def test_single_shot_final_state_jacobian(cart):
     """backpropJacobianOfFinalState by rows against the final state's
     Ridders finite differences in the last force."""
-    _, _, probs, _ = cart
+    _, _, probs = cart
     _, pt, x = probs["single"]
     J = pt.backprop_jacobian_of_final_state(t64(x))
     assert J.shape == (4, pt.num_variables) and torch.isfinite(J).all()
@@ -253,7 +253,7 @@ def _iterates(run):
 
 
 def test_sgd_first_iterates_match_jax(cart):
-    jw, tw, probs, _ = cart
+    jw, tw, probs = cart
     pj, pt, x = probs["single"]
     jx = _iterates(lambda cb: JaxSGD(iterations=4, learning_rate=0.5).optimize(
         pj, jnp.asarray(x), callback=cb))
@@ -267,7 +267,7 @@ def test_sgd_first_iterates_match_jax(cart):
 def test_augmented_lagrangian_iterates_match_jax(cart):
     """Two outer iterations of three inner Adam steps: x after each inner
     loop (its third iterate) and after the multiplier and penalty update."""
-    jw, tw, probs, _ = cart
+    jw, tw, probs = cart
     pj, pt, x = probs["multi"]
     kw = dict(outer_iterations=2, inner_iterations=3, learning_rate=0.3)
     jx = _iterates(lambda cb: JaxAL(**kw).optimize(pj, jnp.asarray(x), callback=cb))
@@ -279,10 +279,11 @@ def test_augmented_lagrangian_iterates_match_jax(cart):
 
 
 def test_rollout_to_json(cart):
-    _, _, probs, ref = cart
-    _, pt, x = probs["mapped"]
+    _, _, probs = cart
+    pj, pt, x = probs["mapped"]
     d = json.loads(pt.rollout(t64(x)).to_json())
-    np.testing.assert_allclose(d["poses"], ref["mapped"]["poses"], rtol=1e-10, atol=1e-12)
+    want = np.asarray(jax.jit(lambda x: pj.rollout(x).poses)(jnp.asarray(x)))
+    np.testing.assert_allclose(d["poses"], want, rtol=1e-10, atol=1e-12)
     assert np.asarray(d["forces"]).shape == (10, 1)
     assert TrajectoryRollout._fields == ("poses", "vels", "forces", "mapped")
 
@@ -387,14 +388,14 @@ def cheetah():
     forces = act[None] + 0.5 * rng.randn(4, tw.action_size)
     knot = start + np.r_[1e-4 * rng.randn(tw.num_dofs), 1e-2 * rng.randn(tw.num_dofs)]
     x = np.concatenate([knot, forces.reshape(-1)])
-    f = jax.jit(lambda x: (pj.rollout(x).poses, pj.rollout(x).vels, pj.constraints(x),
-                           pj.loss(x)))
-    ref = [np.asarray(a) for a in f(jnp.asarray(x))]
-    return pt, x, ref
+    return pj, pt, x
 
 
 def test_cheetah_multishot_forward_matches_jax(cheetah):
-    pt, x, (poses, vels, cons, loss) = cheetah
+    pj, pt, x = cheetah
+    f = jax.jit(lambda x: (pj.rollout(x).poses, pj.rollout(x).vels, pj.constraints(x),
+                           pj.loss(x)))
+    poses, vels, cons, loss = (np.asarray(a) for a in f(jnp.asarray(x)))
     with torch.no_grad():
         ro = pt.rollout(t64(x))
         close(ro.poses, poses, 1e-9)
@@ -413,7 +414,7 @@ def test_cheetah_multishot_forward_matches_jax(cheetah):
 
 
 def test_cheetah_constraint_jacobian_scan_vs_reverse_pass_and_fd(cheetah):
-    pt, x, _ = cheetah
+    _, pt, x = cheetah
     xt = t64(x)
     J_scan = pt.constraint_jacobian_scan(xt)
     J_rev = pt.constraint_jacobian(xt)

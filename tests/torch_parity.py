@@ -8,6 +8,7 @@ cross between the frameworks as numpy.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -77,6 +78,7 @@ def dump_world(world) -> dict:
                 adjacent_body_check=s.adjacent_body_check,
                 joints=joints,
                 bodies=bodies,
+                markers=[(n, b, np.asarray(off), f) for n, (b, off, f) in s.markers.items()],
             )
         )
     return dict(
@@ -329,7 +331,29 @@ def shallow_cheetah_state(steps=91, control=3.0, seed=20):
 def shallow_cheetah_states(steps=91, control=3.0, seed=20, keep=4):
     """shallow_cheetah_state's rollout, keeping its last `keep` states:
     (JAX world, port world, q (keep, nv), v (keep, nv), u (keep, nv)),
-    each u the control drawn for the step after its state."""
+    each u the control drawn for the step after its state. The worlds are
+    built anew for each call; the rollout is run once a process."""
+    from nimblephysics_tpu.models import half_cheetah
+
+    from nimblephysics_tpu_torch.convert import world_from_arrays
+
+    jw, _, _ = half_cheetah()
+    tw = world_from_arrays(dump_world(jw))
+    qs, vs, ctl = _cheetah_rollout(max(steps, _ROLLOUT_STEPS), control, seed)
+    # State k (after k steps) is row k - 1; its next control is ctl[k].
+    return (jw, tw, qs[steps - keep:steps].copy(), vs[steps - keep:steps].copy(),
+            ctl[steps - keep + 1:steps + 1].copy())
+
+
+# The rollout's length: one rollout a process serves every caller with
+# steps <= this (a shorter rollout is its prefix: the same seeded draws).
+_ROLLOUT_STEPS = 91
+
+
+@functools.lru_cache(maxsize=None)
+def _cheetah_rollout(steps, control, seed):
+    """Every state of the seeded half-cheetah rollout: q, v (steps, nv) and
+    the controls (steps + 1, nv) as generalized forces."""
     from nimblephysics_tpu.models import half_cheetah
 
     from nimblephysics_tpu_torch.convert import world_from_arrays
@@ -344,15 +368,14 @@ def shallow_cheetah_states(steps=91, control=3.0, seed=20, keep=4):
     us = [tw.action_to_forces(t64(control * rng.randn(tw.action_size)))
           for _ in range(steps + 1)]
     s = (t64(q), t64(v0), torch.zeros(eng.num_constraint_rows, **F64))
-    kept = []
+    qs, vs = [], []
     with torch.no_grad():
-        for k, u in enumerate(us[:steps]):
+        for u in us[:steps]:
             r = eng.step(s[0], s[1], u, z_warm=s[2])
             s = (r.q, r.v, r.impulses)
-            if k >= steps - keep:
-                kept.append((n(s[0]), n(s[1]), n(us[k + 1])))
-    qs, vs, ctl = (np.stack(x) for x in zip(*kept))
-    return jw, tw, qs, vs, ctl
+            qs.append(n(s[0]))
+            vs.append(n(s[1]))
+    return np.stack(qs), np.stack(vs), np.stack([n(u) for u in us])
 
 
 def ik_mapping_pair(jax_world, port_world, entries):
